@@ -1,0 +1,119 @@
+"""The port's pair distance (namazu_tpu_torch/ops/pair_distance.py) held
+to the reference's Pallas pair kernel (interpret mode) and to its plain
+XLA distance.
+
+On CPU tensors the wrapper runs its plain PyTorch version; the CUDA
+kernel itself is held to that version on the card by chip_smoke.py.
+Tolerance: rtol 1e-3 / atol 1e-4, the tolerance tests/test_pallas_score.py
+applies to the Pallas kernel (f32 sums taken in another order)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from namazu_tpu.ops import schedule as jsched
+from namazu_tpu.ops.pallas_score import min_sq_distance_pair_pallas
+from namazu_tpu_torch.ops import pair_distance as pd
+from namazu_tpu_torch.ops import schedule as tsched
+
+RTOL, ATOL = 1e-3, 1e-4
+SHAPES = [(64, 32, 16, 128), (300, 100, 7, 128), (33, 7, 5, 64)]
+
+
+def make_inputs(N, A, F, K, seed=0):
+    rng = np.random.RandomState(seed)
+    feats = rng.rand(N, K).astype(np.float32)
+    archive = rng.rand(A, K).astype(np.float32)
+    failures = rng.rand(F, K).astype(np.float32)
+    return feats, archive, failures
+
+
+def port(feats, archive, failures, **kw):
+    nov, bug = pd.min_sq_distance_pair(torch.from_numpy(feats),
+                                       torch.from_numpy(archive),
+                                       torch.from_numpy(failures), **kw)
+    return nov.numpy(), bug.numpy()
+
+
+@pytest.mark.parametrize("occupied", [False, True])
+@pytest.mark.parametrize("N,A,F,K", SHAPES)
+def test_pair_matches_pallas_interpret(N, A, F, K, occupied):
+    feats, archive, failures = make_inputs(N, A, F, K)
+    occ = {}
+    if occupied:  # occupancies below capacity
+        occ = {"archive_n": max(1, A // 2), "failure_n": max(1, F - 2)}
+    want_nov, want_bug = min_sq_distance_pair_pallas(
+        jnp.asarray(feats), jnp.asarray(archive), jnp.asarray(failures),
+        tile_p=32, tile_a=16, interpret=True,
+        **{k: jnp.asarray(v, jnp.int32) for k, v in occ.items()})
+    nov, bug = port(feats, archive, failures, **occ)
+    assert nov.shape == (N,) and bug.shape == (N,)
+    np.testing.assert_allclose(nov, np.asarray(want_nov), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(bug, np.asarray(want_bug), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("N,A,F,K", SHAPES)
+def test_pair_matches_xla_min_sq_distance(N, A, F, K):
+    feats, archive, failures = make_inputs(N, A, F, K, seed=1)
+    nov, bug = port(feats, archive, failures, archive_n=A - 1,
+                    failure_n=torch.tensor(F))
+    f = jnp.asarray(feats)
+    want_nov = jsched.min_sq_distance(f, jnp.asarray(archive),
+                                      valid_n=jnp.asarray(A - 1))
+    want_bug = jsched.min_sq_distance(f, jnp.asarray(failures))
+    np.testing.assert_allclose(nov, np.asarray(want_nov), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(bug, np.asarray(want_bug), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("archive_n,failure_n", [(0, 0), (0, 3), (5, 0)])
+def test_zero_occupancy_is_neutral_through_min_sq_pair_best(archive_n,
+                                                            failure_n):
+    feats, archive, failures = make_inputs(40, 9, 6, 64, seed=2)
+    want = jsched._min_sq_pair_best(
+        jnp.asarray(feats), jnp.asarray(archive), jnp.asarray(failures),
+        archive_n=jnp.asarray(archive_n, jnp.int32),
+        failure_n=jnp.asarray(failure_n, jnp.int32))
+    got = tsched._min_sq_pair_best(
+        torch.from_numpy(feats), torch.from_numpy(archive),
+        torch.from_numpy(failures), archive_n=torch.tensor(archive_n),
+        failure_n=failure_n)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+    if archive_n == 0:
+        assert np.all(got[0].numpy() == 0.0)
+    if failure_n == 0:
+        assert np.all(got[1].numpy() == 0.0)
+
+
+@pytest.mark.parametrize("empty", ["archive", "failures"])
+def test_empty_buffer_raises(empty):
+    feats, archive, failures = make_inputs(8, 4, 4, 16)
+    if empty == "archive":
+        archive = archive[:0]
+    else:
+        failures = failures[:0]
+    with pytest.raises(ValueError, match="empty archive/failures"):
+        port(feats, archive, failures)
+
+
+def test_reference_matches_brute_force():
+    feats, archive, failures = make_inputs(50, 13, 4, 32, seed=4)
+    nov, bug = port(feats, archive, failures, archive_n=10)
+    d_a = ((feats[:, None] - archive[None, :10]) ** 2).sum(-1).min(1)
+    d_f = ((feats[:, None] - failures[None]) ** 2).sum(-1).min(1)
+    np.testing.assert_allclose(nov, d_a, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(bug, d_f, rtol=RTOL, atol=ATOL)
+
+
+def test_launch_count_stays_zero_on_cpu():
+    before = pd.LAUNCHES
+    feats, archive, failures = make_inputs(16, 4, 4, 16)
+    port(feats, archive, failures)
+    assert pd.LAUNCHES == before == 0

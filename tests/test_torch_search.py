@@ -1,0 +1,319 @@
+"""The port's island step and ScheduleSearch (namazu_tpu_torch/parallel/
+islands.py, models/search.py, convert.py) held to the reference's
+ScheduleSearch on a one-device mesh, plus the port's own contracts: fused
+equals stepwise bit for bit, checkpoints load both ways, the device rule
+and the import rule.
+
+Sizes are small (P=64, H=K=32). Deterministic math is held to rtol 1e-3 /
+atol 1e-4; populations given the same draws must be equal exactly (with a
+power-of-two mutation sigma, see tests/test_torch_ga.py)."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from namazu_tpu.models import ga as jga
+from namazu_tpu.models import search as jsearch
+from namazu_tpu.ops import schedule as jsched
+from namazu_tpu.ops import trace_encoding as jte
+from namazu_tpu.parallel.islands import make_multiaxis_island_step
+from namazu_tpu_torch import convert, resolve_device
+from namazu_tpu_torch.models import ga as tga
+from namazu_tpu_torch.models import search as tsearch
+from namazu_tpu_torch.ops import schedule as tsched
+from namazu_tpu_torch.ops import trace_encoding as tte
+from namazu_tpu_torch.parallel import islands as tisl
+from test_torch_ga import SIGMA, jax_draws
+
+RTOL, ATOL = 1e-3, 1e-4
+H = K = 32
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def jax_cfg(**kw):
+    base = jsearch.SearchConfig(
+        H=H, K=K, archive_size=16, failure_size=8, population=64, seed=3,
+        ga=jga.GAConfig(max_delay=0.05, mutation_sigma=SIGMA))
+    return base._replace(**kw)
+
+
+def port_cfg(**kw):
+    c = jax_cfg(**kw)
+    return tsearch.SearchConfig(*c)._replace(
+        ga=tga.GAConfig(*c.ga), weights=tsched.ScoreWeights(*c.weights))
+
+
+def stream(te, n, seed):
+    rng = np.random.RandomState(seed)
+    return te.encode_event_stream(
+        [f"10.0.0.{rng.randint(6)}->10.0.0.{rng.randint(6)}:m{rng.randint(3)}"
+         for _ in range(n)],
+        arrivals=sorted(rng.rand(n).tolist()), H=H)
+
+
+def seed_archives(search, te):
+    for i in range(6):
+        search.add_executed_trace(stream(te, 40, 10 + i),
+                                  reproduced=i == 2)
+    search.add_failure_trace(stream(te, 50, 99))
+    search.add_failure_trace(stream(te, 50, 98))
+
+
+REFS = [(48, 0), (1100, 1)]  # the second trace scores blockwise
+
+
+def refs(te):
+    return [stream(te, n, s) for n, s in REFS]
+
+
+def port_traces(encs):
+    h, _, a, m, _ = tte.stack_traces(encs)
+    return tsched.TraceArrays(torch.from_numpy(h).long(),
+                              torch.from_numpy(a), torch.from_numpy(m))
+
+
+def jax_arrays(js):
+    return {
+        "pop_delays": np.asarray(js._state.pop.delays),
+        "pop_faults": np.asarray(js._state.pop.faults),
+        "gen": np.asarray(js._state.gen),
+        "best_fitness": np.asarray(js._state.best_fitness),
+        "best_delays": np.asarray(js._state.best_delays),
+        "best_faults": np.asarray(js._state.best_faults),
+        "archive": js.archive, "failures": js.failures, "pairs": js.pairs,
+        "archive_n": js._archive_n, "failure_n": js._failure_n,
+    }
+
+
+def test_encoding_matches_reference():
+    a, b = stream(jte, 300, 5), stream(tte, 300, 5)
+    for f in ("hint_ids", "entity_ids", "arrival", "mask"):
+        assert np.array_equal(getattr(a, f), getattr(b, f))
+    assert tte.HINT_SPACE == jte.HINT_SPACE
+    assert np.array_equal(tte.sample_pairs(K, H, 4), jte.sample_pairs(K, H, 4))
+    assert tte._auto_length(1100) == jte._auto_length(1100) == 1152
+    for x, y in zip(tte.stack_traces([a, stream(tte, 20, 1)]),
+                    jte.stack_traces([a, stream(jte, 20, 1)])):
+        assert np.array_equal(x, y)
+
+
+def test_one_island_generation_matches_reference():
+    js = jsearch.ScheduleSearch(jax_cfg(), n_devices=1)
+    seed_archives(js, jte)
+    encs = refs(jte)
+    # one generation of the reference's island step on a 1-device mesh
+    _, trace, pairs, archive, failures = js._device_inputs(encs)
+    step = make_multiaxis_island_step(js.mesh, js.cfg.ga, js.cfg.weights,
+                                      rings=js._rings)
+    want = step(js._state, js._key, trace, pairs, archive, failures, None,
+                jnp.asarray(1.0, jnp.float32), None)
+    # the key that generation consumes: fold_in(base, gen), then the
+    # island's axis index (0 on one device)
+    key = jax.random.fold_in(jax.random.fold_in(js._key, 0), 0)
+    draws = jax_draws(key, 64, H, js.cfg.ga)
+
+    conv = convert.state_from_jax(jax_arrays(js), "cpu")
+    got, fit = tisl.island_step(
+        conv.state, 0, port_traces(encs), torch.from_numpy(conv.pairs),
+        torch.from_numpy(conv.archive), torch.from_numpy(conv.failures),
+        tga.GAConfig(*js.cfg.ga), tsched.ScoreWeights(*js.cfg.weights),
+        draws=draws)
+    assert got.gen == int(want.gen) == 1
+    assert np.array_equal(got.pop.delays.numpy(), np.asarray(want.pop.delays))
+    assert np.array_equal(got.pop.faults.numpy(), np.asarray(want.pop.faults))
+    np.testing.assert_allclose(float(got.best_fitness),
+                               float(want.best_fitness), rtol=RTOL,
+                               atol=ATOL)
+    assert float(fit) == float(got.best_fitness)
+    assert np.array_equal(got.best_delays.numpy(),
+                          np.asarray(want.best_delays))
+
+
+def test_fused_equals_stepwise_bit_for_bit_across_runs():
+    fused = tsearch.ScheduleSearch(port_cfg(fused=True, fused_chunk=3),
+                                   device="cpu")
+    step = tsearch.ScheduleSearch(port_cfg(fused=False), device="cpu")
+    for s in (fused, step):
+        seed_archives(s, tte)
+    encs = refs(tte)
+    for gens in (5, 4):
+        a = fused.run(encs, generations=gens)
+        b = step.run(encs, generations=gens)
+        assert a.fitness == b.fitness
+        assert np.array_equal(a.delays, b.delays)
+        assert fused.last_fit_curve == step.last_fit_curve
+        assert len(fused.last_fit_curve) == gens
+    assert torch.equal(fused._state.pop.delays, step._state.pop.delays)
+    assert fused._state.gen == step._state.gen == 9
+    assert fused.generations_run == 9
+
+
+def test_search_end_to_end_rescored_by_reference():
+    s = tsearch.ScheduleSearch(port_cfg(fused_chunk=4), device="cpu")
+    seed_archives(s, tte)
+    encs = refs(tte)
+    first = s.run(encs, generations=6)
+    best = s.run(encs, generations=6)
+    assert np.isfinite(best.fitness) and best.fitness >= first.fitness
+    assert best.delays.shape == (H,) and best.delays.dtype == np.float32
+    assert s.last_run_seconds > 0 and s.generations_run == 12
+    # the reported fitness is the reference scorer's fitness of the table
+    h, _, a, m, _ = jte.stack_traces(refs(jte))
+    want, _ = jsched.score_population_multi(
+        jnp.asarray(best.delays[None]),
+        jsched.TraceArrays(jnp.asarray(h), jnp.asarray(a), jnp.asarray(m)),
+        jnp.asarray(s.pairs), jnp.asarray(s.archive),
+        jnp.asarray(s.failures))
+    np.testing.assert_allclose(best.fitness, float(want[0]), rtol=RTOL,
+                               atol=ATOL)
+    # and the port's archive features are the reference's
+    js = jsearch.ScheduleSearch(jax_cfg(), n_devices=1)
+    seed_archives(js, jte)
+    np.testing.assert_allclose(s.archive, js.archive, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(s.failures, js.failures, rtol=RTOL,
+                               atol=ATOL)
+    assert s._failure_digests == js._failure_digests
+
+
+def test_jax_checkpoint_loads_into_port(tmp_path):
+    js = jsearch.ScheduleSearch(jax_cfg(), n_devices=1)
+    seed_archives(js, jte)
+    js.run(refs(jte), generations=3)
+    path = str(tmp_path / "jax.npz")
+    js.save(path)
+    s = tsearch.ScheduleSearch(port_cfg(seed=0), device="cpu")
+    s.load(path)
+    assert np.array_equal(s._state.pop.delays.numpy(),
+                          np.asarray(js._state.pop.delays))
+    assert s._state.gen == 3 and s.generations_run == 3
+    assert float(s._state.best_fitness) == float(js._state.best_fitness)
+    assert np.array_equal(s.best().delays, js.best().delays)
+    assert np.array_equal(s.archive, js.archive)
+    assert np.array_equal(s.failures, js.failures)
+    assert np.array_equal(s.pairs, js.pairs)
+    assert s._seed == 3  # the key data of PRNGKey(3)
+    assert s.distinct_failure_signatures() == 2
+    assert torch.equal(s._dev_archive, torch.from_numpy(js.archive))
+    s.run(refs(tte), generations=2)  # and the loaded state evolves
+    assert s._state.gen == 5
+
+
+def test_port_checkpoint_loads_into_reference(tmp_path):
+    s = tsearch.ScheduleSearch(port_cfg(), device="cpu")
+    seed_archives(s, tte)
+    best = s.run(refs(tte), generations=4)
+    path = str(tmp_path / "port.npz")
+    s.save(path)
+    js = jsearch.ScheduleSearch(jax_cfg(seed=0), n_devices=1)
+    js.load(path)
+    assert np.array_equal(np.asarray(js._state.pop.delays),
+                          s._state.pop.delays.numpy())
+    assert int(js._state.gen) == 4 and js.generations_run == 4
+    assert js.best().fitness == best.fitness
+    assert np.array_equal(js.best().delays, best.delays)
+    assert np.array_equal(np.asarray(jax.random.key_data(js._key)),
+                          [0, 3])
+    assert js.distinct_failure_signatures() == 2
+    js.run(refs(jte), generations=1)
+    assert js.best().fitness >= best.fitness
+    # the policy's raw-npz install (no search built) takes the table too
+    from namazu_tpu.policy.tpu import TPUSearchPolicy
+
+    pol = TPUSearchPolicy()
+    pol.H = H
+    assert pol._install_from_checkpoint(path)
+    np.testing.assert_array_equal(np.asarray(pol._delays, np.float32),
+                                  best.delays)
+
+
+def test_ring_writes_and_failure_dedupe():
+    s = tsearch.ScheduleSearch(port_cfg(archive_size=4), device="cpu")
+    for i in range(6):
+        s.add_executed_trace(stream(tte, 30, i))
+    assert s._archive_n == 6
+    assert torch.equal(s._dev_archive, torch.from_numpy(s.archive))
+    f = stream(tte, 30, 50)
+    s.add_failure_trace(f)
+    s.add_failure_trace(f)  # the same signature spends no slot
+    assert s._failure_n == 1
+    assert tsearch.trace_digest(f) in s._failure_digest_set
+    assert torch.equal(s._dev_failures, torch.from_numpy(s.failures))
+
+
+def test_resident_traces_append_and_rebuild():
+    s = tsearch.ScheduleSearch(port_cfg(), device="cpu")
+    a, b, c = (stream(tte, 40, i) for i in range(3))
+    s.run([a, b], generations=1)
+    assert s._traces.rebuilds == 1
+    s.run([b, c], generations=1)
+    assert (s._traces.rebuilds, s._traces.appends) == (1, 1)
+    view = s._traces.view([c, b])
+    h, _, arr, m, _ = tte.stack_traces([c, b])
+    assert np.array_equal(view.hint_ids.numpy(), h)
+    assert np.array_equal(view.arrival.numpy(), arr)
+    assert np.array_equal(view.mask.numpy(), m)
+    s.run([stream(tte, 300, 7)], generations=1)  # longer rows: rebuild
+    assert s._traces.rebuilds == 2
+
+
+@pytest.mark.parametrize("what", ["surrogate", "order", "faults",
+                                  "guidance", "mcts"])
+def test_unported_features_raise(what):
+    with pytest.raises(NotImplementedError):
+        if what == "surrogate":
+            tsearch.ScheduleSearch(port_cfg(surrogate_topk=4), device="cpu")
+        elif what == "order":
+            tsearch.ScheduleSearch(port_cfg(
+                weights=tsearch.make_score_weights("reorder")), device="cpu")
+        elif what == "faults":
+            tsearch.ScheduleSearch(port_cfg()._replace(
+                ga=tga.GAConfig(max_fault=0.1)), device="cpu")
+        elif what == "guidance":
+            tsearch.ScheduleSearch(port_cfg(),
+                                   device="cpu").enable_guidance()
+        else:
+            tsearch.MCTSSearch(port_cfg())
+
+
+def test_config_and_weights_match_reference():
+    assert tsearch.SearchConfig._fields == jsearch.SearchConfig._fields
+    for mode in ("delay", "reorder"):
+        assert tuple(tsearch.make_score_weights(mode, tau=0.01)) == \
+            tuple(jsearch.make_score_weights(mode, tau=0.01))
+
+
+def test_cuda_is_the_default_device_and_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tsearch.ScheduleSearch(port_cfg())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.state_from_jax({}, "cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_the_reference_package():
+    files = sorted((REPO / "namazu_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        for name in _imports(f):
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "namazu_tpu", "flax",
+                                "optax"), f"{f}: imports {name}"
