@@ -10,17 +10,27 @@ Phases, each of which fails the script on any error:
 1. card: the card's name and power limit, torch and CUDA versions, and
    the build of every kernel under namazu_tpu_torch/csrc/ (nvcc output
    with ptxas's register report included);
-2. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shape and at ragged shapes and occupancies, with its
-   time, the plain version's time, a library call's time and the bound;
-3. main path: ScheduleSearch on the card at the tpu_search policy's
-   production sizes (population 4096, H = K = 256, archive 512,
-   failures 64, chunks of 16 generations) against 4 reference traces of
-   2000 events, run twice for 64 generations; the pair-distance kernel
-   must launch once per generation, and the best table re-scored on the
-   CPU by the plain versions must give the reported fitness;
+2. kernels: each kernel (B1 the pair distance, B2 the single-archive
+   distance) against its plain PyTorch version on the card at the main
+   path's shape and at ragged shapes and occupancies, with its time, the
+   plain version's time, a library call's time and the bound;
+3. fused search: ScheduleSearch on the card at the tpu_search policy's
+   sizes (population 4096, H = K = 256, archive 512, failures 64, chunks
+   of 16 generations, surrogate off) against 4 reference traces of 2000
+   events, run twice for 64 generations; B1 must launch once per
+   generation, and the best table re-scored on the CPU by the plain
+   versions must give the reported fitness;
 4. where a generation's time goes: each layer timed alone, and one chunk
-   of generations traced by torch.profiler for the device's busy share.
+   of generations traced by torch.profiler for the device's busy share;
+5. sidecar path: a naive storage of 48 recorded runs of 2000 actions
+   (8 of them failures) written to disk, the port's sidecar serving on
+   the card in a thread, and two search requests over one keep-alive
+   connection carrying the tpu_search policy's default params (surrogate
+   top-16 included), 64 generations each: history ingest, GA search,
+   surrogate re-rank and checkpoint. B1 must launch 2 * 64 + 2 times
+   (once per generation, once per re-rank), the surrogate must train,
+   the checkpoint must hold the reference's keys, and the returned table
+   re-scored on the CPU must give the returned fitness.
 
 The last lines are the card line, a JSON line with every kernel's
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -31,6 +41,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -42,7 +54,38 @@ RTOL, ATOL = 1e-3, 1e-4
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 MAIN_SHAPE = (16384, 512, 64, 256)  # N = P*T, A, F, K on the main path
+SINGLE_SHAPE = (16384, 512, 256)  # B2 held at N, A, K
 POPULATION, H, K, TRACES, EVENTS, GENERATIONS = 4096, 256, 256, 4, 2000, 64
+HISTORY_RUNS, HISTORY_FAILURES = 48, 8
+
+# TPUSearchPolicy()._search_params() and ._ingest_params()._asdict() at
+# the policy's defaults (namazu_tpu/policy/tpu.py), as its sidecar
+# requests carry them; tests/test_torch_sidecar.py holds them to the policy
+POLICY_SEARCH_PARAMS = {
+    "H": 256, "L": 0, "K": 256, "population": 4096, "migrate_k": 8,
+    "fused": True, "fused_chunk": 16, "device_trace_dir": "",
+    "migrate_every": 1, "dcn_migrate_every": 1, "seed": 0,
+    "max_interval": 0.1, "max_fault": 0.0, "surrogate_topk": 16,
+    "min_failure_signatures": 0, "novelty_floor": 0.25,
+    "search_backend": "ga", "guidance": False, "guidance_bonus": 0.5,
+    "guidance_width": 0, "guidance_window": 0, "mcts_tree_depth": 24,
+    "mcts_levels": 8, "mcts_simulations": 256, "mcts_rollouts": 64,
+    "release_mode": "delay", "w_novelty": 1.0, "w_bug": 1.0,
+    "w_delay_cost": 0.01, "w_fault_cost": 0.05, "tau": 0.005,
+    "reorder_gap": 0.002, "reorder_window": 0.05, "devices": None,
+}
+POLICY_INGEST_PARAMS = {
+    "H": 256, "L": 0, "release_mode": "delay", "reference_mode": "recent",
+    "max_interval": 0.1, "max_reference_traces": 4, "max_seed_genomes": 16,
+    "order_mode_max_l": 4096, "failure_pool": "", "knowledge": "",
+    "knowledge_tenant": "history", "knowledge_scenario": "",
+    "guidance": False, "guidance_width": 0, "guidance_window": 0,
+}
+CHECKPOINT_KEYS = (
+    "backend", "hint_space", "pairs", "archive", "archive_labels",
+    "archive_n", "failures", "failure_n", "failure_digests", "key",
+    "generations_run", "pop_delays", "pop_faults", "gen", "best_fitness",
+    "best_delays", "best_faults", "surrogate_params")
 
 
 class SmokeFailure(RuntimeError):
@@ -97,6 +140,82 @@ def pair_bound_ms(N, A, F, K):
                                  "operations")
 
 
+def single_bound_ms(N, A, K):
+    nbytes = 4 * (N * K + A * K + N)
+    flops = 2 * N * A * K
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def compare(name, got, want, where) -> float:
+    """Max abs error of ``got`` against ``want`` over the rows that are not
+    masked out; fails on a shape, a non-finite value, a masked-row
+    mismatch or an error past rtol/atol."""
+    import torch
+
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{name} at {where}: bad output")
+    live = want < 1e30  # rows whose min is masked stay at 3.4e38
+    check(bool(torch.equal(live, got < 1e30)),
+          f"{name} at {where}: masked rows differ")
+    ok = torch.allclose(got[live], want[live], rtol=RTOL, atol=ATOL)
+    err = float((got[live] - want[live]).abs().max()) if live.any() \
+        else 0.0
+    check(ok, f"{name} at {where}: max abs err {err}")
+    return err
+
+
+def check_single_kernel(device) -> dict:
+    import torch
+
+    from namazu_tpu_torch.ops import pair_distance as pd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [
+        (SINGLE_SHAPE, None), (SINGLE_SHAPE, 300), (SINGLE_SHAPE, 0),
+        ((33, 7, 64), None), ((33, 7, 64), 3), ((33, 7, 64), 0),
+        ((300, 100, 128), 50),
+    ]
+    max_err = 0.0
+    for i, ((N, A, Kc), vn) in enumerate(cases):
+        feats, archive, _ = pair_inputs(N, A, 1, Kc, 200 + i, device)
+        got = pd.min_sq_distance(feats, archive, vn)
+        want = pd.min_sq_distance_reference(feats, archive, vn)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare("single kernel", got, want,
+                                       f"{(N, A, Kc)} valid_n {vn}"))
+        print(f"  single kernel {(N, A, Kc)} valid_n {vn}: within rtol "
+              f"{RTOL} atol {ATOL} of the plain version")
+    N, A, Kc = SINGLE_SHAPE
+    feats, archive, _ = pair_inputs(N, A, 1, Kc, 8, device)
+    kernel_ms = cuda_time_ms(lambda: pd.min_sq_distance(feats, archive))
+    plain_ms = cuda_time_ms(
+        lambda: pd.min_sq_distance_reference(feats, archive))
+    library_ms = cuda_time_ms(
+        lambda: torch.cdist(feats, archive).square().amin(1))
+    bound_ms, bound_by = single_bound_ms(N, A, Kc)
+    torch.cuda.synchronize()
+    print(f"  single kernel at {SINGLE_SHAPE}: kernel_ms {kernel_ms:.5f} "
+          f"plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} "
+          f"bound_us {bound_ms * 1e3:.3f} ({bound_by}) "
+          f"max_abs_err {max_err:.3e}")
+    return {
+        "name": "min_sq",
+        "route": "cuda",
+        "source": "namazu_tpu_torch/csrc/min_sq_pair.cu",
+        "replaces": "namazu_tpu/ops/pallas_score.py:54",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
 def check_pair_kernel(device) -> dict:
     import torch
 
@@ -122,18 +241,9 @@ def check_pair_kernel(device) -> dict:
                                                  archive_n=an, failure_n=fn)
         torch.cuda.synchronize()
         for g, w, name in zip(got, want, ("nov", "bug")):
-            check(g.shape == (N,) and bool(torch.isfinite(g).all()),
-                  f"pair kernel {name} at {(N, A, F, Kc)}: bad output")
-            live = w < 1e30  # rows whose min is masked stay at 3.4e38
-            check(bool(torch.equal(live, g < 1e30)),
-                  f"pair kernel {name} at {(N, A, F, Kc)} occ {(an, fn)}: "
-                  "masked rows differ")
-            ok = torch.allclose(g[live], w[live], rtol=RTOL, atol=ATOL)
-            err = float((g[live] - w[live]).abs().max()) if live.any() \
-                else 0.0
-            max_err = max(max_err, err)
-            check(ok, f"pair kernel {name} at {(N, A, F, Kc)} occ "
-                      f"{(an, fn)}: max abs err {err}")
+            max_err = max(max_err, compare(
+                f"pair kernel {name}", g, w, f"{(N, A, F, Kc)} occ "
+                                             f"{(an, fn)}"))
         print(f"  pair kernel {(N, A, F, Kc)} occ {(an, fn)}: within "
               f"rtol {RTOL} atol {ATOL} of the plain version")
 
@@ -249,7 +359,7 @@ def drive_main_path(device, generations=GENERATIONS, **sizes):
         import torch
 
         torch.cuda.synchronize()
-    pd.LAUNCHES = 0  # count only the main path's launches
+    pd.LAUNCHES = pd.SINGLE_LAUNCHES = 0  # count only this path's
     bests = []
     for r in range(2):
         best = search.run(refs, generations=generations)
@@ -331,6 +441,160 @@ def profile_generation(search, refs) -> dict:
     return out
 
 
+# -- phase 5: the sidecar path ----------------------------------------------
+
+
+def write_history(root, runs=HISTORY_RUNS, failures=HISTORY_FAILURES,
+                  events=EVENTS, seed=1):
+    """A naive storage directory as namazu_tpu's control plane writes it:
+    ``runs`` recorded runs of ``events`` packet actions each (the
+    reference's action dicts, arrival and release stamped), the last of
+    every ``runs // failures`` a failure whose releases carry up to 50 ms
+    of injected delay (successes up to 2 ms), results stamped with the
+    hint space. Returns the directory."""
+    import numpy as np
+
+    from namazu_tpu_torch.ops.trace_encoding import HINT_SPACE
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(root)
+    with open(os.path.join(root, "storage.json"), "w") as f:
+        json.dump({"type": "naive", "next_run": runs}, f)
+    every = runs // failures
+    for r in range(runs):
+        ok = r % every != every - 1
+        hints, arrivals = synthetic_stream(rng, events)
+        t0 = 1.7e9 + 60.0 * r
+        released = np.asarray(arrivals) + rng.rand(events) * (
+            0.002 if ok else 0.05)
+        actions = [{
+            "type": "action", "class": "EventAcceptanceAction",
+            "entity": hint.split("->")[0], "uuid": f"a{r:03d}-{i:05d}",
+            "option": {}, "event_uuid": f"e{r:03d}-{i:05d}",
+            "event_class": "PacketEvent", "event_hint": hint,
+            "event_arrived": t0 + arr, "triggered_time": t0 + float(rel),
+        } for i, (hint, arr, rel) in enumerate(zip(hints, arrivals,
+                                                   released))]
+        run_dir = os.path.join(root, f"{r:08x}")
+        os.makedirs(run_dir)
+        with open(os.path.join(run_dir, "trace.json"), "w") as f:
+            json.dump(actions, f)
+        with open(os.path.join(run_dir, "result.json"), "w") as f:
+            json.dump({"successful": ok, "required_time": 1.0,
+                       "metadata": {"hint_space": HINT_SPACE}}, f)
+    return root
+
+
+def newest_references(storage_dir, n=4, H=H):
+    """The references ingest evolves against: the newest successful runs'
+    arrival views, newest first."""
+    from namazu_tpu_torch.history import load_storage
+    from namazu_tpu_torch.ops import trace_encoding as te
+
+    st = load_storage(storage_dir)
+    ok = [i for i in range(st.nr_stored_histories()) if st.is_successful(i)]
+    return [te.encode_trace(st.get_stored_history(i), H=H)
+            for i in ok[::-1][:n]]
+
+
+def time_host_ingest(storage_dir, H=H) -> None:
+    """The host half of one ingest timed alone: reading every run's JSON,
+    then encoding both views (one fnv64a in Python per event)."""
+    from namazu_tpu_torch.history import load_storage
+    from namazu_tpu_torch.ops import trace_encoding as te
+
+    t0 = time.perf_counter()
+    st = load_storage(storage_dir)
+    runs = [st.get_stored_history(i)
+            for i in range(st.nr_stored_histories())]
+    t1 = time.perf_counter()
+    for trace in runs:
+        te.encode_trace_views(trace, H=H)
+    t2 = time.perf_counter()
+    events = sum(len(r) for r in runs)
+    print(f"  ingest's host half alone: reading {len(runs)} runs "
+          f"{t1 - t0:.3f} s, encoding {events} events (fnv64a in Python) "
+          f"{t2 - t1:.3f} s ({(t2 - t1) / events * 1e6:.2f} us/event)")
+
+
+def drive_sidecar_path(device, work_dir, generations=GENERATIONS,
+                       search_params=None, ingest_params=None, **history):
+    """Two search requests over one keep-alive connection to the port's
+    sidecar on ``device``; returns the kernel launches they made."""
+    import numpy as np
+
+    from namazu_tpu_torch import wire
+    from namazu_tpu_torch.ops import pair_distance as pd
+    from namazu_tpu_torch.sidecar import SidecarServer
+
+    t0 = time.perf_counter()
+    storage = write_history(os.path.join(work_dir, "history"), **history)
+    print(f"  wrote {storage}: {time.perf_counter() - t0:.2f} s")
+    ckpt = os.path.join(work_dir, "search.npz")
+    req = {
+        "op": "search", "key": storage, "storage": storage,
+        "search_params": search_params or POLICY_SEARCH_PARAMS,
+        "ingest_params": ingest_params or POLICY_INGEST_PARAMS,
+        "generations": generations, "checkpoint": ckpt,
+    }
+    server = SidecarServer("127.0.0.1", 0, device=device)
+    server.start()
+    try:
+        if device != "cpu":
+            import torch
+
+            torch.cuda.synchronize()
+        pd.LAUNCHES = pd.SINGLE_LAUNCHES = 0
+        resps = []
+        with socket.create_connection(("127.0.0.1", server.port)) as sock:
+            for r in range(2):
+                t0 = time.perf_counter()
+                wire.write_frame(sock, req)
+                resp = wire.read_frame(sock)
+                wall = time.perf_counter() - t0
+                check(resp is not None and resp.get("ok") is True,
+                      f"sidecar request {r} failed: {resp}")
+                resps.append(resp)
+                tm = server.service.timings[storage]
+                rate = (server.service.search_for(storage).population
+                        * generations / tm["run"])
+                print(f"  request {r}: ingest {tm['ingest']:.3f} s, run "
+                      f"{tm['run']:.4f} s ({rate:.1f} schedules/s), "
+                      f"re-rank {tm['rerank'] * 1e3:.2f} ms, "
+                      f"save {tm['save']:.3f} s, wall {wall:.3f} s; "
+                      f"fitness {resp['fitness']:.6f}, generations_run "
+                      f"{resp['generations_run']}")
+        launches = {"min_sq_pair": pd.LAUNCHES, "min_sq": pd.SINGLE_LAUNCHES}
+        search = server.service.search_for(storage)
+    finally:
+        server.shutdown()
+    r0, r1 = resps
+    check([r0["generations_run"], r1["generations_run"]]
+          == [generations, 2 * generations], "generations_run is wrong")
+    for r in resps:
+        check(len(r["delays"]) == search.cfg.H
+              and math.isfinite(r["fitness"]), "bad table in a response")
+    check(search._surrogate is not None, "the surrogate did not train")
+    with np.load(ckpt) as z:
+        missing = [k for k in CHECKPOINT_KEYS if k not in z.files]
+    check(not missing, f"checkpoint lacks {missing}")
+    if device != "cpu":
+        check(launches["min_sq_pair"] == 2 * generations + 2,
+              f"pair kernel launched {launches['min_sq_pair']} times on "
+              f"the sidecar path, expected {2 * generations + 2}")
+    time_host_ingest(storage, search.cfg.H)
+    refs = newest_references(storage, H=search.cfg.H)
+    rescored = rescore_on_cpu(search, refs, np.asarray(r1["delays"],
+                                                       np.float32))
+    check(math.isclose(rescored, r1["fitness"], rel_tol=RTOL,
+                       abs_tol=ATOL),
+          f"re-scored fitness {rescored} != returned {r1['fitness']}")
+    print(f"  returned table re-scored on the CPU: {rescored:.6f} "
+          f"(returned {r1['fitness']:.6f}; best seen "
+          f"{search.best().fitness:.6f})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -356,18 +620,37 @@ def main() -> int:
 
     print("phase: kernels against their plain versions")
     pair = check_pair_kernel("cuda")
+    single = check_single_kernel("cuda")
 
-    print("phase: main path")
-    pair["launches"], search, refs = drive_main_path("cuda")
+    print("phase: fused search")
+    from namazu_tpu_torch.ops import pair_distance as pd
+
+    fused_launches, search, refs = drive_main_path("cuda")
+    fused = {"min_sq_pair": fused_launches, "min_sq": pd.SINGLE_LAUNCHES}
     torch.cuda.synchronize()
 
     print("phase: where a generation's time goes")
     breakdown = profile_generation(search, refs)
     print(json.dumps({"breakdown": breakdown}))
+    del search, refs
     torch.cuda.synchronize()
 
+    print("phase: sidecar path")
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        sidecar = drive_sidecar_path("cuda", work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+
+    for k in (pair, single):
+        k["launches"] = sidecar[k["name"]]
+        k["launches_by_path"] = {"sidecar": sidecar[k["name"]],
+                                 "fused_search": fused[k["name"]]}
     print(card)
-    print(json.dumps({"kernels": [pair]}))
+    print(json.dumps({"kernels": [pair, single]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

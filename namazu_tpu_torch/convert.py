@@ -3,14 +3,24 @@
 The reference's ``ScheduleSearch`` saves its state as numpy arrays under
 fixed ``.npz`` keys (``pop_delays``, ``pop_faults``, ``gen``,
 ``best_fitness``, ``best_delays``, ``best_faults``, ``archive``,
-``failures``, ``pairs``, ``archive_n``, ``failure_n``). These functions
-map those arrays to the port's :class:`IslandState` and archives and back;
-the port's ``ScheduleSearch.save``/``load`` use them, and so do the tests.
+``failures``, ``pairs``, ``archive_n``, ``failure_n``, and
+``surrogate_params`` once its surrogate has trained). These functions
+map those arrays to the port's :class:`IslandState`, archives and
+surrogate weights and back; the port's ``ScheduleSearch.save``/``load``
+use them, and so do the tests.
+
+The surrogate's weights travel in two forms. The reference's live form
+is a flax params tree ``{"params": {"Dense_i": {"kernel": [in, out],
+"bias": [out]}}}``; the port's is ``SurrogateMLP``'s ``state_dict``
+(``dense_i.weight`` is ``[out, in]``). Its checkpoint form is one flat
+f32 vector, ``jax.flatten_util.ravel_pytree`` of the tree: leaves in
+sorted-key order (``Dense_0/bias``, ``Dense_0/kernel``, ``Dense_1/...``),
+each raveled row-major.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple, Optional
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,3 +76,62 @@ def state_to_jax(state: IslandState) -> dict:
         "best_delays": state.best_delays.cpu().numpy(),
         "best_faults": state.best_faults.cpu().numpy(),
     }
+
+
+SURROGATE_LAYERS = 3
+
+
+def surrogate_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax params tree (numpy leaves; the ``"params"`` wrapper
+    optional) -> the port's ``SurrogateMLP`` state_dict."""
+    tree = params.get("params", params)
+    out = {}
+    for i in range(SURROGATE_LAYERS):
+        layer = tree[f"Dense_{i}"]
+        out[f"dense_{i}.weight"] = torch.from_numpy(
+            np.array(np.asarray(layer["kernel"], np.float32).T, order="C"))
+        out[f"dense_{i}.bias"] = torch.from_numpy(
+            np.array(layer["bias"], np.float32))
+    return out
+
+
+def surrogate_state_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
+    """The port's state_dict -> a flax params tree of numpy arrays."""
+    return {"params": {
+        f"Dense_{i}": {
+            "kernel": np.ascontiguousarray(
+                state[f"dense_{i}.weight"].detach().cpu().numpy().T),
+            "bias": state[f"dense_{i}.bias"].detach().cpu().numpy(),
+        } for i in range(SURROGATE_LAYERS)}}
+
+
+def surrogate_flat_from_state(state: Mapping[str, torch.Tensor]
+                              ) -> np.ndarray:
+    """The port's state_dict -> the reference checkpoint's
+    ``surrogate_params`` vector (ravel_pytree order)."""
+    tree = surrogate_state_to_flax(state)["params"]
+    parts = []
+    for i in range(SURROGATE_LAYERS):
+        parts.append(tree[f"Dense_{i}"]["bias"].reshape(-1))
+        parts.append(tree[f"Dense_{i}"]["kernel"].reshape(-1))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def surrogate_state_from_flat(vec: np.ndarray, K: int, hidden: int = 128
+                              ) -> Dict[str, torch.Tensor]:
+    """A ``surrogate_params`` vector -> the port's state_dict for an MLP of
+    input width ``K``; a vector of another size raises ``ValueError``."""
+    vec = np.asarray(vec, np.float32).reshape(-1)
+    dims = [K, hidden, hidden // 2, 1]
+    want = sum(o + i * o for i, o in zip(dims[:-1], dims[1:]))
+    if vec.size != want:
+        raise ValueError(f"surrogate_params has {vec.size} values; an MLP "
+                         f"of width K={K} has {want}")
+    tree, at = {}, 0
+    for n, (fan_in, fan_out) in enumerate(zip(dims[:-1], dims[1:])):
+        bias = vec[at:at + fan_out]
+        at += fan_out
+        kernel = vec[at:at + fan_in * fan_out].reshape(fan_in, fan_out)
+        at += fan_in * fan_out
+        tree[f"Dense_{n}"] = {"bias": bias, "kernel": kernel}
+    return surrogate_state_from_flax(tree)

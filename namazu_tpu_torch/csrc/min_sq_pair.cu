@@ -1,34 +1,39 @@
-// min_sq_pair.cu: the pair-distance kernel of the scorer's epilogue.
+// min_sq_pair.cu: the min-squared-distance kernels of the scorer.
 //
 // Replaces namazu_tpu/ops/pallas_score.py::min_sq_distance_pair_pallas
-// (kernel body _pair_kernel). For each feature row f it computes, in one
-// pass over f,
+// (kernel body _pair_kernel; entry nmz_min_sq_pair_f32) and
+// namazu_tpu/ops/pallas_score.py::min_sq_distance_pallas (kernel body
+// _kernel; entry nmz_min_sq_f32). For each feature row f the pair kernel
+// computes, in one pass over f,
 //   nov[f] = min over archive rows a  of |f|^2 + |a|^2 - 2 f.a
 //   bug[f] = min over failure rows g  of |f|^2 + |g|^2 - 2 f.g
-// with rows at or past each segment's occupancy given the norm 3.4e38
-// (they never win a min), and both results clamped at >= 0.
+// and the single kernel the first segment alone. Rows at or past a
+// segment's occupancy get the norm 3.4e38 (they never win a min), and the
+// results are clamped at >= 0. Both are one template, instantiated for
+// one segment and for two.
 //
-// Bound on an H100 SXM at the main-path shape (N=16384, A=512, F=64,
-// K=256): 2*N*(A+F)*K = 4.8 GFLOP of f32 multiply-add against ~17.4 MB of
-// traffic (feats, both row sets and both outputs once), i.e. ~72 us at
-// 67 TFLOP/s of non-tensor f32 against ~5 us at 3.35 TB/s. The f32 kernel
-// is bounded by arithmetic.
+// Bound on an H100 SXM at the pair kernel's main-path shape (N=16384,
+// A=512, F=64, K=256): 2*N*(A+F)*K = 4.8 GFLOP of f32 multiply-add against
+// ~17.4 MB of traffic (feats, both row sets and both outputs once), i.e.
+// ~72 us at 67 TFLOP/s of non-tensor f32 against ~5 us at 3.35 TB/s; the
+// single kernel at [16384, 512, 256] does 4.29 GFLOP, ~64 us. Both are
+// bounded by arithmetic.
 //
-// Design. The TPU kernel walks a sequential grid and carries its running
+// Design. The TPU kernels walk a sequential grid and carry their running
 // minima from one grid step to the next in the output block. Hopper blocks
 // run in parallel and carry nothing, so here each block owns TN=64 feature
-// rows and loops INSIDE the block over every column tile of the archive
-// and the failures together, keeping both running minima in registers.
-// One pass over feats serves both minima and no [N, A] matrix reaches
-// device memory: the traffic is feats once, the archive and failure rows
-// once per block (they stay in L2), and the two [N] outputs. Each of the
-// 256 threads computes a 4x4 micro-tile of dot products by f32 FMA out of
-// shared memory, so the arithmetic runs on the CUDA cores at full f32
-// precision, as the reference's CPU path does. Moving it to the tensor
-// cores (bf16 or TF32 wgmma, TMA loads) is the kernel's redesign.
+// rows and loops INSIDE the block over every column tile of its segments,
+// keeping the running minima in registers. One pass over feats serves
+// every minimum and no [N, A] matrix reaches device memory: the traffic is
+// feats once, the segment rows once per block (they stay in L2), and the
+// [N] outputs. Each of the 256 threads computes a 4x4 micro-tile of dot
+// products by f32 FMA out of shared memory, so the arithmetic runs on the
+// CUDA cores at full f32 precision, as the reference's CPU path does.
+// Moving it to the tensor cores (bf16 or TF32 wgmma, TMA loads) is the
+// kernels' redesign.
 //
-// The occupancies are read from device memory (int32[2]: archive_n,
-// failure_n), so a later capture into a CUDA graph never bakes them in.
+// The occupancies are read from device memory (int32[SEGMENTS]), so a
+// later capture into a CUDA graph never bakes them in.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,13 +68,17 @@ __device__ __forceinline__ void stage_tile(float (*dst)[TN + PAD],
   }
 }
 
+// SEGMENTS = 2: archive then failures, minima into nov and bug.
+// SEGMENTS = 1: archive only, minimum into nov (failures, F and bug unused).
+template <int SEGMENTS>
 __global__ void __launch_bounds__(THREADS)
-min_sq_pair_kernel(const float* __restrict__ feats,
-                   const float* __restrict__ archive,
-                   const float* __restrict__ failures,
-                   const int* __restrict__ occ,
-                   float* __restrict__ nov, float* __restrict__ bug,
-                   int N, int A, int F, int K) {
+min_sq_kernel(const float* __restrict__ feats,
+              const float* __restrict__ archive,
+              const float* __restrict__ failures,
+              const int* __restrict__ occ,
+              float* __restrict__ nov, float* __restrict__ bug,
+              int N, int A, int F, int K) {
+  static_assert(SEGMENTS == 1 || SEGMENTS == 2, "one or two segments");
   static_assert(TN == TC, "stage_tile serves both tiles");
   __shared__ __align__(16) float fs[BK][TN + PAD];  // feats tile, k-major
   __shared__ __align__(16) float cs[BK][TC + PAD];  // column tile, k-major
@@ -81,9 +90,9 @@ min_sq_pair_kernel(const float* __restrict__ feats,
   const int ty = tid >> 4;  // rows 4*ty .. 4*ty+3 of the block's rows
   const int row0 = blockIdx.x * TN;
   const int live_a = min(max(occ[0], 0), A);
-  const int live_f = min(max(occ[1], 0), F);
+  const int live_f = SEGMENTS == 2 ? min(max(occ[1], 0), F) : 0;
   const int tiles_a = (A + TC - 1) / TC;
-  const int tiles = tiles_a + (F + TC - 1) / TC;
+  const int tiles = tiles_a + (SEGMENTS == 2 ? (F + TC - 1) / TC : 0);
 
   float best_nov[4], best_bug[4];
 #pragma unroll
@@ -162,8 +171,9 @@ min_sq_pair_kernel(const float* __restrict__ feats,
     for (int off = 8; off > 0; off >>= 1) {
       best_nov[i] = fminf(best_nov[i],
                           __shfl_xor_sync(0xffffffffu, best_nov[i], off));
-      best_bug[i] = fminf(best_bug[i],
-                          __shfl_xor_sync(0xffffffffu, best_bug[i], off));
+      if (SEGMENTS == 2)
+        best_bug[i] = fminf(best_bug[i],
+                            __shfl_xor_sync(0xffffffffu, best_bug[i], off));
     }
   }
   if (tx == 0) {
@@ -172,7 +182,7 @@ min_sq_pair_kernel(const float* __restrict__ feats,
       const int r = row0 + 4 * ty + i;
       if (r < N) {
         nov[r] = fmaxf(best_nov[i], 0.f);
-        bug[r] = fmaxf(best_bug[i], 0.f);
+        if (SEGMENTS == 2) bug[r] = fmaxf(best_bug[i], 0.f);
       }
     }
   }
@@ -190,9 +200,22 @@ extern "C" int nmz_min_sq_pair_f32(const float* feats, const float* archive,
                                    int F, int K, void* stream) {
   if (N <= 0) return 0;
   const int blocks = (N + TN - 1) / TN;
-  min_sq_pair_kernel<<<blocks, THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  min_sq_kernel<2><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       feats, archive, failures, occ, nov, bug, N, A, F, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The single-segment kernel: min over archive rows only. Takes f32
+// row-major contiguous feats [N, K], archive [A, K] (K % 4 == 0, 16-byte
+// aligned rows) and occ int32[1] (valid_n), writes out [N]. Same launch
+// contract as nmz_min_sq_pair_f32.
+extern "C" int nmz_min_sq_f32(const float* feats, const float* archive,
+                              const int* occ, float* out, int N, int A,
+                              int K, void* stream) {
+  if (N <= 0) return 0;
+  const int blocks = (N + TN - 1) / TN;
+  min_sq_kernel<1><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      feats, archive, nullptr, occ, out, nullptr, N, A, 0, K);
   return static_cast<int>(cudaGetLastError());
 }
 

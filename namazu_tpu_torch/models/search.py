@@ -4,13 +4,21 @@
 Owns the precedence pairs and the novelty/failure archives (host ring
 buffers with device copies written in place), keeps the reference traces
 on the device keyed by content, runs generations on one card, and
-extracts the best delay table for the control plane to replay.
+extracts the delay table for the control plane to replay: the best seen,
+or, with ``surrogate_topk > 0`` once the surrogate has enough labeled
+runs of both outcomes, the surrogate's pick among the evolved
+population's top-k by fitness.
+
+History ingest (``models/ingest.py``) refits the precedence pairs to the
+occupied hint buckets (``set_occupied_buckets``), seeds the population
+with failures' delay tables (``seed_population``) and fills the archives.
 
 Checkpoints keep the reference's ``.npz`` keys, ``key`` included (the
-uint32[2] that ``jax.random.PRNGKey(seed)`` holds), so a checkpoint
-written by either package loads into the other. The surrogate re-rank,
-causality guidance, the MCTS backend, order mode and fault search are
-later slices of the port and raise ``NotImplementedError``.
+uint32[2] that ``jax.random.PRNGKey(seed)`` holds) and the surrogate's
+weights as the reference's flat ``surrogate_params``, so a checkpoint
+written by either package loads into the other. Causality guidance, the
+MCTS backend, order mode and fault search are later slices of the port
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,10 +34,12 @@ import torch
 from namazu_tpu_torch import convert
 from namazu_tpu_torch.device import DeviceLike, resolve_device
 from namazu_tpu_torch.models.ga import GAConfig
+from namazu_tpu_torch.models.surrogate import RewardSurrogate
 from namazu_tpu_torch.ops import trace_encoding as te
 from namazu_tpu_torch.ops.schedule import (
     ScoreWeights,
     TraceArrays,
+    score_population_multi,
     trace_features,
 )
 from namazu_tpu_torch.parallel.islands import (
@@ -50,7 +60,9 @@ class SearchConfig(NamedTuple):
     seed: int = 0
     ga: GAConfig = GAConfig()
     weights: ScoreWeights = ScoreWeights()
-    surrogate_topk: int = 0  # > 0 is not ported yet
+    # > 0: the surrogate re-ranks the evolved population's top-k by
+    # fitness and run() returns its pick (once it has trained)
+    surrogate_topk: int = 0
     # novelty anneal: with at least this many distinct failure signatures
     # the novelty weight is scaled by min_failure_signatures / n (never
     # below novelty_floor); 0 disables
@@ -221,10 +233,12 @@ class ScheduleSearch:
 
     BACKEND = "ga"
 
+    #: labeled runs needed in EACH outcome class before the surrogate may
+    #: override the fitness argmax
+    MIN_CLASS_EXAMPLES = 3
+
     def __init__(self, cfg: SearchConfig = SearchConfig(),
                  device: DeviceLike = "cuda"):
-        if cfg.surrogate_topk > 0:
-            raise _unsupported("the surrogate re-rank (surrogate_topk > 0)")
         if cfg.weights.order_mode:
             raise _unsupported("order mode")
         if cfg.ga.max_fault > 0:
@@ -244,8 +258,10 @@ class ScheduleSearch:
         self._failure_digests = [""] * cfg.failure_size
         self._failure_digest_set: set = set()
         self.generations_run = 0
-        self.last_run_seconds = 0.0
+        self.last_run_seconds = 0.0  # the evolve section of run()
+        self.last_rerank_seconds = 0.0  # surrogate train + re-rank
         self.last_fit_curve: List[float] = []
+        self._surrogate: Optional[RewardSurrogate] = None
         self._key = key_data(cfg.seed)
         self._state = init_island_state(cfg.seed + 1, self.population,
                                         cfg.H, cfg.ga, self.device)
@@ -274,10 +290,56 @@ class ScheduleSearch:
                            self.cfg.H)
         return f.cpu().numpy()
 
+    def set_occupied_buckets(self, occupied) -> None:
+        """Refit the precedence pairs to the hint buckets observed in the
+        recorded traces (``te.informative_pairs``). When the pairs change,
+        every stored feature is in the old space: the archives, their
+        labels and the failure digests are cleared on the host and on the
+        device, and the best-so-far is reset."""
+        new = te.informative_pairs(occupied, self.cfg.K, self.cfg.H,
+                                   self.cfg.seed)
+        if np.array_equal(new, self.pairs):
+            return
+        self.pairs = new
+        self.archive[:] = 0.5
+        self.archive_labels[:] = 0.0
+        self._archive_n = 0
+        self.failures[:] = 0.5
+        self._failure_n = 0
+        self._failure_digests = [""] * self.cfg.failure_size
+        self._failure_digest_set.clear()
+        self._upload_archives()
+        self._reset_best()
+
+    def _reset_best(self) -> None:
+        """Invalidate the best-so-far record (the feature space changed)."""
+        self._state = self._state._replace(best_fitness=torch.full(
+            (), float("-inf"), device=self.device))
+
+    def seed_population(self, delay_tables) -> None:
+        """Write imitation genomes (recorded failures' delay tables,
+        clipped to ``max_delay``) into the population before evolving,
+        one every ``P // n`` rows. The device population is written in
+        place, not reallocated."""
+        if len(delay_tables) == 0:
+            return
+        seeds = np.clip(
+            np.stack([np.asarray(t, np.float32) for t in delay_tables]),
+            0.0, self.cfg.ga.max_delay)
+        n = min(seeds.shape[0], self.population)
+        stride = max(1, self.population // n)
+        idx = [min(i * stride, self.population - 1) for i in range(n)]
+        self._state.pop.delays[torch.tensor(idx, device=self.device)] = \
+            torch.from_numpy(seeds[:n]).to(self.device)
+
     def add_executed_trace(self, encoded: te.EncodedTrace,
-                           reproduced: bool = False) -> None:
+                           reproduced: bool = False,
+                           arrival: Optional[te.EncodedTrace] = None
+                           ) -> None:
         """Record an executed run's interleaving into the novelty archive,
-        labeled with whether it reproduced the bug."""
+        labeled with whether it reproduced the bug (the surrogate's
+        target). ``arrival`` (the run's arrival view) feeds causality
+        guidance in the reference and is unused until that is ported."""
         slot = self._archive_n % self.cfg.archive_size
         self.archive[slot] = self._feats_of(encoded)
         self.archive_labels[slot] = 1.0 if reproduced else 0.0
@@ -302,6 +364,17 @@ class ScheduleSearch:
 
     def distinct_failure_signatures(self) -> int:
         return len(self._failure_digest_set)
+
+    def has_failure_signature(self, digest: str) -> bool:
+        return digest in self._failure_digest_set
+
+    def labeled_archive(self):
+        """``(feats [N, K], labels [N])`` of the populated archive slots
+        whose outcome is known (NaN labels are excluded)."""
+        n = min(self._archive_n, self.cfg.archive_size)
+        feats, labels = self.archive[:n], self.archive_labels[:n]
+        known = np.isfinite(labels)
+        return feats[known], labels[known]
 
     def novelty_scale(self) -> float:
         """Annealed multiplier on ``weights.novelty``: 1.0 while the
@@ -332,23 +405,31 @@ class ScheduleSearch:
 
     def run(self, encoded, generations: int = 50) -> BestSchedule:
         """Evolve against one or more reference traces for ``generations``
-        generations; returns the best schedule seen so far (monotonic
-        across calls)."""
+        generations. Returns the best schedule seen so far (monotonic
+        across calls), unless ``surrogate_topk > 0`` and the surrogate
+        has trained: then the surrogate's pick among the current
+        population's top-k by fitness, whose fitness may lie below
+        ``best().fitness``."""
         t0 = time.perf_counter()
+        inputs = self._device_inputs(encoded)
+        nov_scale = self.novelty_scale()
         if self.cfg.fused:
-            curve = self._run_fused(encoded, generations)
+            curve = self._run_fused(inputs, nov_scale, generations)
         else:
-            curve = self._run_stepwise(encoded, generations)
+            curve = self._run_stepwise(inputs, nov_scale, generations)
         self._sync()
         self.last_run_seconds = time.perf_counter() - t0
         self.last_fit_curve = curve
         self.generations_run += generations
-        return self.best()
+        t0 = time.perf_counter()
+        picked = self._surrogate_pick(*inputs, nov_scale)
+        self.last_rerank_seconds = time.perf_counter() - t0
+        return picked if picked is not None else self.best()
 
-    def _run_stepwise(self, encoded, generations: int) -> List[float]:
+    def _run_stepwise(self, inputs, nov_scale, generations: int
+                      ) -> List[float]:
         """One island step per generation: the fused path's reference."""
-        traces, pairs, archive, failures = self._device_inputs(encoded)
-        nov_scale = self.novelty_scale()
+        traces, pairs, archive, failures = inputs
         fits = []
         for _ in range(generations):
             self._state, fit = island_step(
@@ -357,13 +438,13 @@ class ScheduleSearch:
             fits.append(fit)
         return [float(v) for v in torch.stack(fits).tolist()] if fits else []
 
-    def _run_fused(self, encoded, generations: int) -> List[float]:
+    def _run_fused(self, inputs, nov_scale, generations: int
+                   ) -> List[float]:
         """Generations in chunks of ``fused_chunk``, each one call with no
         host sync inside. A chunk's best-fitness history is copied to the
         host asynchronously and read only after the next chunk has been
         queued, so the host never waits on the chunk still running."""
-        traces, pairs, archive, failures = self._device_inputs(encoded)
-        nov_scale = self.novelty_scale()
+        traces, pairs, archive, failures = inputs
         curve: List[float] = []
         pending = None
         done = 0
@@ -398,6 +479,63 @@ class ScheduleSearch:
             done.synchronize()
         curve.extend(float(v) for v in host.tolist())
 
+    def _fetch_population(self):
+        """The population as host numpy arrays ``(delays, faults)``."""
+        pop = self._state.pop
+        return pop.delays.cpu().numpy(), pop.faults.cpu().numpy()
+
+    # -- surrogate ---------------------------------------------------------
+
+    def _train_surrogate(self) -> Optional[RewardSurrogate]:
+        """Fit the MLP on the labeled archive (4 epochs, seeded by the
+        generations run so far); None while surrogate use is off or
+        either outcome class holds fewer than MIN_CLASS_EXAMPLES."""
+        if self.cfg.surrogate_topk <= 0:
+            return None
+        feats, labels = self.labeled_archive()
+        pos = int((labels > 0.5).sum())
+        neg = int(len(labels) - pos)
+        if min(pos, neg) < self.MIN_CLASS_EXAMPLES:
+            return None
+        if self._surrogate is None:
+            self._surrogate = RewardSurrogate(K=self.cfg.K,
+                                              seed=self.cfg.seed,
+                                              device=self.device)
+        self._surrogate.train(feats, labels, epochs=4,
+                              seed=self.cfg.seed + self.generations_run)
+        return self._surrogate
+
+    def _rerank_candidates(self, traces, pairs, archive, failures,
+                           nov_scale=None):
+        """``(top-k row indices, fitness [P], feats [P, T, K])`` of the
+        current population, re-scored once."""
+        k = min(self.cfg.surrogate_topk, self.population)
+        fitness, feats = score_population_multi(
+            self._state.pop.delays, traces, pairs, archive, failures,
+            self.cfg.weights, novelty_scale=nov_scale)
+        return torch.argsort(-fitness, stable=True)[:k], fitness, feats
+
+    def _surrogate_pick(self, traces, pairs, archive, failures,
+                        nov_scale=None) -> Optional[BestSchedule]:
+        """Re-score the current population once (one pair-kernel launch),
+        take its top-k by fitness (stable descending sort, ties to the
+        lower index), average each candidate's features over the
+        reference traces, and return the candidate the surrogate rates
+        most likely to reproduce; None = no surrogate (fitness argmax)."""
+        surrogate = self._train_surrogate()
+        if surrogate is None:
+            return None
+        top, fitness, feats = self._rerank_candidates(
+            traces, pairs, archive, failures, nov_scale)
+        cand_feats = feats[top].mean(dim=1).cpu().numpy()
+        winner = int(top[int(np.argmax(surrogate.predict(cand_feats)))])
+        pop = self._state.pop
+        return BestSchedule(
+            delays=pop.delays[winner].cpu().numpy(),
+            faults=pop.faults[winner].cpu().numpy(),
+            fitness=float(fitness[winner]),
+        )
+
     def best(self) -> BestSchedule:
         return BestSchedule(
             delays=self._state.best_delays.cpu().numpy(),
@@ -423,6 +561,9 @@ class ScheduleSearch:
             "generations_run": np.asarray(self.generations_run),
         }
         flat.update(convert.state_to_jax(self._state))
+        if self._surrogate is not None:
+            flat["surrogate_params"] = convert.surrogate_flat_from_state(
+                self._surrogate.state_dict())
         tmp = path + ".tmp.npz"
         np.savez(tmp, **flat)
         os.replace(tmp, path)
@@ -471,6 +612,18 @@ class ScheduleSearch:
             state = state._replace(pop=self._state.pop)
         self._state = state
         self._upload_archives()
+        if "surrogate_params" in arrays:
+            # the optimizer restarts, as in the reference; weights of
+            # another feature width retrain from the labeled archive
+            self._surrogate = RewardSurrogate(K=self.cfg.K,
+                                              seed=self.cfg.seed,
+                                              device=self.device)
+            try:
+                self._surrogate.load_state_dict(
+                    convert.surrogate_state_from_flat(
+                        arrays["surrogate_params"], self.cfg.K))
+            except ValueError:
+                self._surrogate = None
 
 
 class MCTSSearch:

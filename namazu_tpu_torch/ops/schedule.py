@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from namazu_tpu_torch.ops import pair_distance
 from namazu_tpu_torch.ops.pair_distance import (  # noqa: F401 (MASK_BIG)
     MASK_BIG,
     Occupancy,
@@ -143,6 +144,22 @@ def trace_features(trace: TraceArrays, pairs: torch.Tensor, tau: float,
     zero = torch.zeros((H,), dtype=torch.float32,
                        device=trace.arrival.device)
     return _genome_features(zero, trace, pairs, tau)
+
+
+def min_sq_distance(feats: torch.Tensor, archive: torch.Tensor,
+                    valid_n: Occupancy = None) -> torch.Tensor:
+    """``min_a |f_p - a|^2`` for ``feats [P, K]``, ``archive [A, K]`` ->
+    ``[P]``, rows at or past ``valid_n`` masked with MASK_BIG. CUDA tensors
+    launch the single-archive kernel (B2), CPU tensors its plain version."""
+    return pair_distance.min_sq_distance(feats, archive, valid_n)
+
+
+def _min_sq_distance_best(feats: torch.Tensor, archive: torch.Tensor,
+                          valid_n: Occupancy = None) -> torch.Tensor:
+    """The reference's dispatch point for the fused-min kernel: here the
+    same function as :func:`min_sq_distance` (the kernel on the card, the
+    plain version on the CPU)."""
+    return min_sq_distance(feats, archive, valid_n)
 
 
 def _min_sq_pair_best(feats: torch.Tensor, archive: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Host-side trace featurization: event streams -> fixed-shape arrays.
+"""Host-side trace featurization: recorded runs and event streams ->
+fixed-shape arrays.
 
 The port's own copy of ``namazu_tpu/ops/trace_encoding.py`` (numpy only):
 each trace is encoded as
@@ -6,16 +7,19 @@ each trace is encoded as
 * ``hint_ids``  int32[L] — replay hint hashed (fnv64a) into H buckets;
 * ``entity_ids`` int32[L] — entity index (stable per stream);
 * ``arrival``   float32[L] — arrival offset in seconds from run start;
-* ``mask``      bool[L] — valid positions (traces are right-padded).
+* ``mask``      bool[L] — valid positions (traces are right-padded);
+* ``faultable`` bool[L] — the cause event's class can carry a fault.
 
 Precedence pairs are sampled over hint buckets, so every trace lands in
-one feature space. Encoding from a recorded ``SingleTrace`` waits for the
-ingest slice of the port.
+one feature space. A recorded run is a sequence of action records
+(``namazu_tpu_torch/history.py``): anything with ``class_name``,
+``entity_id``, ``event_class``, ``event_hint``, ``event_arrived`` and
+``triggered_time`` attributes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -59,6 +63,25 @@ def hint_bucket(hint: str, n_buckets: int = DEFAULT_H) -> int:
     return fnv64a(hint.encode()) % n_buckets
 
 
+# Signal classes registered by namazu_tpu/signal/{event,action}.py, split
+# by whether the class overrides Event.default_fault_action (a packet
+# drop, an EIO): a static copy, held to the reference's registry by
+# tests/test_torch_ingest.py. Actions are not events and carry no fault.
+FAULTABLE_CLASSES = frozenset({"PacketEvent", "FilesystemEvent"})
+UNFAULTABLE_CLASSES = frozenset({
+    "NopEvent", "ProcSetEvent", "FunctionEvent", "LogEvent",
+    "NopAction", "EventAcceptanceAction", "PacketFaultAction",
+    "FilesystemFaultAction", "ProcSetSchedAction", "ShellAction",
+})
+
+
+def class_supports_fault(class_name: str) -> bool:
+    """Whether events of this signal class carry a fault action, i.e.
+    whether the control plane can realize a drop for them. Unknown or
+    unrecorded classes count as faultable, as in the reference."""
+    return class_name not in UNFAULTABLE_CLASSES
+
+
 class EncodedTrace:
     """One trace in array form (numpy; moved to the device by the search)."""
 
@@ -71,6 +94,83 @@ class EncodedTrace:
         self.truncated = int(truncated)  # events beyond an explicit L cap
         self.faultable = (np.ones_like(self.mask) if faultable is None
                           else np.asarray(faultable, bool))
+
+    @property
+    def length(self) -> int:
+        return int(self.mask.sum())
+
+
+def action_hint(action) -> str:
+    """An action's semantic identity: its cause event's replay hint, or
+    cause class + entity for actions recorded without one."""
+    return action.event_hint or \
+        f"{action.event_class or action.class_name}:{action.entity_id}"
+
+
+def encode_trace(trace, L: Optional[int] = None, H: int = DEFAULT_H,
+                 entity_index: Optional[Dict[str, int]] = None,
+                 realized: bool = False) -> EncodedTrace:
+    """Encode a recorded run: the arrival view, or with ``realized`` the
+    release view (see :func:`encode_trace_views`)."""
+    views = encode_trace_views(trace, L=L, H=H, entity_index=entity_index)
+    return views[1] if realized else views[0]
+
+
+def encode_trace_views(
+    trace,
+    L: Optional[int] = None,
+    H: int = DEFAULT_H,
+    entity_index: Optional[Dict[str, int]] = None,
+) -> Tuple[EncodedTrace, EncodedTrace]:
+    """Both time views of one recorded run, ``(arrival_view,
+    realized_view)``, sharing the identity arrays.
+
+    The arrival view stamps each event at its cause event's arrival
+    (``event_arrived``), the counterfactual anchor of the search; the
+    realized view at its release (``triggered_time``), where an injected
+    interleaving's signature lives. Each view falls back to the other's
+    time where one was not recorded, and to index spacing (1 ms) where
+    neither was. Times are offsets from the earliest recorded time of the
+    view (``a0``/``r0``). ``L=None`` sizes to the whole run; an explicit
+    ``L`` truncates (``truncated`` says how many events were dropped)."""
+    entity_index = entity_index if entity_index is not None else {}
+    actions = list(trace)
+    if L is None:
+        L = _auto_length(len(actions))
+    hint_ids = np.zeros(L, np.int32)
+    entity_ids = np.zeros(L, np.int32)
+    arrival = np.zeros(L, np.float32)
+    released = np.zeros(L, np.float32)
+    mask = np.zeros(L, bool)
+    faultable = np.ones(L, bool)
+
+    arr_times: List[float] = []
+    rel_times: List[float] = []
+    for a in actions:
+        arrived = a.event_arrived or 0.0
+        rel = a.triggered_time or 0.0
+        arr_times.append(arrived if arrived else rel)
+        rel_times.append(rel if rel else arrived)
+    a0 = min((t for t in arr_times if t), default=0.0)
+    r0 = min((t for t in rel_times if t), default=0.0)
+
+    for i, action in enumerate(actions[:L]):
+        ent = action.entity_id
+        if ent not in entity_index:
+            entity_index[ent] = len(entity_index)
+        hint_ids[i] = hint_bucket(action_hint(action), H)
+        entity_ids[i] = entity_index[ent]
+        arrival[i] = (arr_times[i] - a0) if arr_times[i] else i * 1e-3
+        released[i] = (rel_times[i] - r0) if rel_times[i] else i * 1e-3
+        mask[i] = True
+        faultable[i] = class_supports_fault(action.event_class)
+    truncated = max(0, len(actions) - L)
+    return (
+        EncodedTrace(hint_ids, entity_ids, arrival, mask,
+                     truncated=truncated, faultable=faultable),
+        EncodedTrace(hint_ids, entity_ids, released, mask,
+                     truncated=truncated, faultable=faultable),
+    )
 
 
 def encode_event_stream(
@@ -112,6 +212,62 @@ def sample_pairs(
     v = rng.randint(0, H - 1, size=K).astype(np.int32)
     v = np.where(v >= u, v + 1, v).astype(np.int32)  # ensure u != v
     return np.stack([u, v], axis=1)  # [K, 2]
+
+
+def informative_pairs(
+    occupied: Sequence[int],
+    K: int = DEFAULT_K,
+    H: int = DEFAULT_H,
+    seed: int = 0,
+) -> np.ndarray:
+    """K ordered hint-bucket pairs concentrated on the buckets that occur
+    in the recorded traces: every ordered pair of occupied buckets first
+    (a seeded sample of K of them when there are more), the rest filled
+    with uniform pairs so unseen buckets still project somewhere."""
+    occ = sorted({int(b) for b in occupied})
+    pairs = [(u, v) for u in occ for v in occ if u != v]
+    rng = np.random.RandomState(seed)
+    if len(pairs) >= K:
+        idx = rng.choice(len(pairs), size=K, replace=False)
+        return np.array([pairs[i] for i in sorted(idx)], np.int32)
+    fill = sample_pairs(K - len(pairs), H, seed)
+    if not pairs:
+        return fill
+    return np.concatenate([np.array(pairs, np.int32), fill])
+
+
+def envelope_trace(encs: Sequence[EncodedTrace]) -> EncodedTrace:
+    """Per-bucket minimum-arrival envelope of several encoded traces: one
+    event per observed bucket at its earliest arrival over the inputs,
+    sorted by time. Features depend only on each bucket's first
+    occurrence, so this is the tightest lower envelope of those runs."""
+    firsts: Dict[int, float] = {}
+    ents: Dict[int, int] = {}
+    flts: Dict[int, bool] = {}
+    for e in encs:
+        m = e.mask
+        for b, t, en, fb in zip(e.hint_ids[m], e.arrival[m],
+                                e.entity_ids[m], e.faultable[m]):
+            b = int(b)
+            if b not in firsts or t < firsts[b]:
+                firsts[b] = float(t)
+                ents[b] = int(en)
+                flts[b] = bool(fb)
+    items = sorted(firsts.items(), key=lambda kv: kv[1])
+    L = _auto_length(len(items))
+    hint_ids = np.zeros(L, np.int32)
+    entity_ids = np.zeros(L, np.int32)
+    arrival = np.zeros(L, np.float32)
+    mask = np.zeros(L, bool)
+    faultable = np.ones(L, bool)
+    for i, (b, t) in enumerate(items):
+        hint_ids[i] = b
+        entity_ids[i] = ents[b]
+        arrival[i] = t
+        mask[i] = True
+        faultable[i] = flts[b]
+    return EncodedTrace(hint_ids, entity_ids, arrival, mask,
+                        faultable=faultable)
 
 
 def pad_trace_row(enc: EncodedTrace, L: int) -> Dict[str, np.ndarray]:

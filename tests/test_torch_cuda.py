@@ -1,6 +1,7 @@
-"""namazu_tpu_torch on the card: the pair-distance kernel against its plain
-version, the wrapper's input checks, and a small search that must launch
-the kernel once per generation. Every test needs a CUDA card and skips
+"""namazu_tpu_torch on the card: the pair-distance kernel (B1) and the
+single-archive kernel (B2) against their plain versions, the wrapper's
+input checks, and a small search that must launch B1 once per generation
+and once more per surrogate re-rank. Every test needs a CUDA card and skips
 without one; on a machine with a card run
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -47,6 +48,24 @@ def test_kernel_matches_plain_version(card, N, A, F, K, an, fn):
         torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("N,A,K,valid_n", [
+    (33, 7, 64, None),
+    (33, 7, 64, 0),
+    (300, 100, 128, 50),
+    (16384, 512, 256, 300),
+])
+def test_single_kernel_matches_plain_version(card, N, A, K, valid_n):
+    g = torch.Generator(device=card).manual_seed(N + 1)
+    feats, archive = (torch.rand((n, K), generator=g, device=card)
+                      for n in (N, A))
+    before = pd.SINGLE_LAUNCHES
+    got = pd.min_sq_distance(feats, archive, valid_n)
+    want = pd.min_sq_distance_reference(feats, archive, valid_n)
+    torch.cuda.synchronize()
+    assert pd.SINGLE_LAUNCHES == before + 1
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     feats = torch.rand((16, 32), device=card)
     rows = torch.rand((8, 32), device=card)
@@ -78,3 +97,24 @@ def test_small_search_launches_once_per_generation(card):
     best = s.run([enc(300), enc(1200)], generations=10)
     assert pd.LAUNCHES - before == 10
     assert np.isfinite(best.fitness)
+
+
+def test_small_search_with_surrogate_launches_once_more(card):
+    rng = np.random.RandomState(1)
+
+    def enc(n):
+        return te.encode_event_stream(
+            [f"h{rng.randint(40)}" for _ in range(n)],
+            arrivals=np.sort(rng.rand(n)).tolist(), H=64)
+
+    s = ScheduleSearch(SearchConfig(H=64, K=64, population=256,
+                                    archive_size=32, failure_size=8,
+                                    fused_chunk=4, surrogate_topk=16),
+                       device=card)
+    for i in range(8):
+        s.add_executed_trace(enc(200), reproduced=i % 2 == 0)
+    s.add_failure_trace(enc(200))
+    before = pd.LAUNCHES
+    best = s.run([enc(300), enc(1200)], generations=10)
+    assert pd.LAUNCHES - before == 11
+    assert s._surrogate is not None and np.isfinite(best.fitness)

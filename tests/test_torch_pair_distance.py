@@ -1,6 +1,6 @@
-"""The port's pair distance (namazu_tpu_torch/ops/pair_distance.py) held
-to the reference's Pallas pair kernel (interpret mode) and to its plain
-XLA distance.
+"""The port's min squared distances (namazu_tpu_torch/ops/pair_distance.py:
+B1 the pair, B2 the single archive) held to the reference's Pallas
+kernels (interpret mode) and to its plain XLA distances.
 
 On CPU tensors the wrapper runs its plain PyTorch version; the CUDA
 kernel itself is held to that version on the card by chip_smoke.py.
@@ -14,7 +14,10 @@ import torch
 import jax.numpy as jnp
 
 from namazu_tpu.ops import schedule as jsched
-from namazu_tpu.ops.pallas_score import min_sq_distance_pair_pallas
+from namazu_tpu.ops.pallas_score import (
+    min_sq_distance_pair_pallas,
+    min_sq_distance_pallas,
+)
 from namazu_tpu_torch.ops import pair_distance as pd
 from namazu_tpu_torch.ops import schedule as tsched
 
@@ -116,4 +119,50 @@ def test_launch_count_stays_zero_on_cpu():
     before = pd.LAUNCHES
     feats, archive, failures = make_inputs(16, 4, 4, 16)
     port(feats, archive, failures)
+    tsched.min_sq_distance(torch.from_numpy(feats), torch.from_numpy(archive))
     assert pd.LAUNCHES == before == 0
+    assert pd.SINGLE_LAUNCHES == 0
+
+
+# -- B2: one archive, masked by valid_n ------------------------------------
+
+SINGLE_SHAPES = [(64, 32, 128), (300, 100, 128), (33, 7, 64)]
+
+
+@pytest.mark.parametrize("valid_n", [None, 0, 1, "half"])
+@pytest.mark.parametrize("N,A,K", SINGLE_SHAPES)
+def test_single_matches_pallas_interpret_and_xla(N, A, K, valid_n):
+    feats, archive, _ = make_inputs(N, A, 1, K, seed=5)
+    n = max(1, A // 2) if valid_n == "half" else valid_n
+    jn = None if n is None else jnp.asarray(n, jnp.int32)
+    f, a = jnp.asarray(feats), jnp.asarray(archive)
+    want_pallas = np.asarray(min_sq_distance_pallas(
+        f, a, tile_p=32, tile_a=16, interpret=True, valid_n=jn))
+    want_xla = np.asarray(jsched.min_sq_distance(f, a, valid_n=jn))
+    tf, ta = torch.from_numpy(feats), torch.from_numpy(archive)
+    for fn in (tsched.min_sq_distance, tsched._min_sq_distance_best,
+               pd.min_sq_distance, pd.min_sq_distance_reference):
+        occ = n if fn is not tsched._min_sq_distance_best \
+            else (None if n is None else torch.tensor(n))
+        got = fn(tf, ta, occ).numpy()
+        assert got.shape == (N,)
+        np.testing.assert_allclose(got, want_pallas, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got, want_xla, rtol=RTOL, atol=ATOL)
+    if n == 0:  # nothing live: the mask identity, as in the reference
+        assert np.all(got > 1e38)
+
+
+def test_single_is_the_pair_kernels_first_segment():
+    feats, archive, failures = make_inputs(50, 13, 4, 32, seed=6)
+    tf, ta, tg = (torch.from_numpy(x) for x in (feats, archive, failures))
+    nov, _ = pd.min_sq_distance_pair(tf, ta, tg, archive_n=9)
+    assert torch.equal(pd.min_sq_distance(tf, ta, 9), nov)
+    d = ((feats[:, None] - archive[None, :9]) ** 2).sum(-1).min(1)
+    np.testing.assert_allclose(nov.numpy(), d, rtol=RTOL, atol=ATOL)
+
+
+def test_single_empty_archive_raises():
+    feats, archive, _ = make_inputs(8, 4, 1, 16)
+    with pytest.raises(ValueError, match="empty archive"):
+        pd.min_sq_distance(torch.from_numpy(feats),
+                           torch.from_numpy(archive[:0]))

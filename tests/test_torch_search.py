@@ -262,12 +262,15 @@ def test_resident_traces_append_and_rebuild():
     assert s._traces.rebuilds == 2
 
 
-@pytest.mark.parametrize("what", ["surrogate", "order", "faults",
+@pytest.mark.parametrize("what", ["devices", "order", "faults",
                                   "guidance", "mcts"])
 def test_unported_features_raise(what):
+    from namazu_tpu_torch.sidecar import build_search_from_params
+
     with pytest.raises(NotImplementedError):
-        if what == "surrogate":
-            tsearch.ScheduleSearch(port_cfg(surrogate_topk=4), device="cpu")
+        if what == "devices":
+            build_search_from_params({"H": H, "K": K, "population": 64,
+                                      "devices": 2}, device="cpu")
         elif what == "order":
             tsearch.ScheduleSearch(port_cfg(
                 weights=tsearch.make_score_weights("reorder")), device="cpu")
@@ -317,3 +320,114 @@ def test_port_imports_neither_jax_nor_the_reference_package():
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "namazu_tpu", "flax",
                                 "optax"), f"{f}: imports {name}"
+
+
+# -- surrogate re-rank and the pair refit ----------------------------------
+
+
+def label_archive(search, te, positives=4):
+    """8 executed runs, ``positives`` of them reproducing, and 2 failures."""
+    for i in range(8):
+        search.add_executed_trace(stream(te, 40, 20 + i),
+                                  reproduced=i < positives)
+    search.add_failure_trace(stream(te, 50, 99))
+    search.add_failure_trace(stream(te, 50, 98))
+
+
+def test_surrogate_pick_matches_reference_from_carried_state(tmp_path):
+    js = jsearch.ScheduleSearch(jax_cfg(surrogate_topk=8), n_devices=1)
+    label_archive(js, jte)
+    js.run(refs(jte), generations=3)
+    path = str(tmp_path / "j.npz")
+    js.save(path)
+    s = tsearch.ScheduleSearch(port_cfg(surrogate_topk=8), device="cpu")
+    s.load(path)
+
+    encs, trace, pairs, archive, failures = js._device_inputs(refs(jte))
+    nov = jnp.asarray(js.novelty_scale(), jnp.float32)
+    fitness, _ = jsched.score_population_multi(
+        jnp.asarray(np.asarray(js._state.pop.delays)), trace, pairs,
+        archive, failures,
+        js.cfg.weights, novelty_scale=nov)
+    want_top = np.asarray(jnp.argsort(-fitness)[:8])
+    inputs = s._device_inputs(refs(tte))
+    top, got_fit, _ = s._rerank_candidates(*inputs, s.novelty_scale())
+    assert np.array_equal(top.numpy(), want_top)
+    np.testing.assert_allclose(got_fit.numpy(), np.asarray(fitness),
+                               rtol=RTOL, atol=ATOL)
+
+    want = js._surrogate_pick(trace, pairs, archive, failures, nov,
+                              encs=encs)
+    got = s._surrogate_pick(*inputs, s.novelty_scale())
+    assert want is not None and got is not None
+    assert np.array_equal(got.delays, want.delays)  # the same winner
+    np.testing.assert_allclose(got.fitness, want.fitness, rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_run_returns_the_surrogate_pick_with_one_extra_rescore():
+    from namazu_tpu_torch.ops import pair_distance as pd
+
+    s = tsearch.ScheduleSearch(port_cfg(surrogate_topk=8), device="cpu")
+    label_archive(s, tte)
+    calls = []
+    real = pd.min_sq_distance_pair_reference
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    pd.min_sq_distance_pair_reference = counting
+    try:
+        got = s.run(refs(tte), generations=5)
+    finally:
+        pd.min_sq_distance_pair_reference = real
+    assert len(calls) == 5 + 1  # one per generation, one for the re-rank
+    assert s._surrogate is not None and s.last_rerank_seconds > 0
+    rows, _ = s._fetch_population()
+    assert any(np.array_equal(r, got.delays) for r in rows)
+    assert got.fitness <= s.best().fitness
+
+
+@pytest.mark.parametrize("positives", [2, 3, 5, 6])
+def test_min_class_examples_gates_the_surrogate(positives):
+    assert tsearch.ScheduleSearch.MIN_CLASS_EXAMPLES == \
+        jsearch.ScheduleSearch.MIN_CLASS_EXAMPLES == 3
+    s = tsearch.ScheduleSearch(port_cfg(surrogate_topk=4), device="cpu")
+    label_archive(s, tte, positives)
+    best = s.run(refs(tte), generations=2)
+    trains = min(positives, 8 - positives) >= 3
+    assert (s._surrogate is not None) == trains
+    if not trains:
+        assert best.fitness == s.best().fitness
+        assert np.array_equal(best.delays, s.best().delays)
+    js = jsearch.ScheduleSearch(jax_cfg(surrogate_topk=4), n_devices=1)
+    label_archive(js, jte, positives)
+    assert (js._train_surrogate() is not None) == trains
+
+
+def test_set_occupied_buckets_clears_archives_and_best():
+    s = tsearch.ScheduleSearch(port_cfg(), device="cpu")
+    js = jsearch.ScheduleSearch(jax_cfg(), n_devices=1)
+    seed_archives(s, tte)
+    seed_archives(js, jte)
+    s.run(refs(tte), generations=2)
+    assert np.isfinite(s.best().fitness)
+    occupied = [1, 5, 9, 30]
+    for search in (s, js):
+        search.set_occupied_buckets(occupied)
+    assert np.array_equal(s.pairs, js.pairs)
+    assert np.array_equal(s.pairs, tte.informative_pairs(occupied, K, H, 3))
+    assert s._archive_n == s._failure_n == 0
+    assert np.all(s.archive == 0.5) and np.all(s.failures == 0.5)
+    assert not s.archive_labels.any()
+    assert s._failure_digests == js._failure_digests == [""] * 8
+    assert s.distinct_failure_signatures() == 0
+    assert torch.equal(s._dev_archive, torch.from_numpy(s.archive))
+    assert torch.equal(s._dev_failures, torch.from_numpy(s.failures))
+    assert torch.equal(s._dev_pairs, torch.from_numpy(s.pairs).long())
+    assert float(s._state.best_fitness) == float("-inf")
+    # the same buckets again: pairs unchanged, archives kept
+    s.add_executed_trace(stream(tte, 30, 3))
+    s.set_occupied_buckets(occupied)
+    assert s._archive_n == 1

@@ -1,0 +1,256 @@
+"""The port's search sidecar (namazu_tpu_torch/sidecar.py, wire.py) on the
+CPU: the framed wire with keep-alive, the reference's response shapes,
+refusal of what is not ported, checkpoints shared with the reference's
+in-process search, and the reference ``tpu_search`` policy installing the
+port's table through ``sidecar = "host:port"``.
+
+Sizes are small (P=64, H=K=32, runs of 240 events). Tables and fitness
+crossing the wire are compared exactly (JSON carries f32 values as
+doubles, and the policy installs what it reads)."""
+
+import socket
+import struct
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from namazu_tpu.models.search import ScheduleSearch as JSearch
+from namazu_tpu.sidecar import build_search_from_params as jbuild
+from namazu_tpu.storage import load_storage as jload
+from namazu_tpu.utils.config import Config
+from namazu_tpu_torch import wire
+from namazu_tpu_torch.sidecar import SidecarServer, request
+from test_torch_ingest import write_storage
+
+SEARCH_PARAMS = {
+    "H": 32, "K": 32, "population": 64, "migrate_k": 2, "seed": 5,
+    "max_interval": 0.05, "fused_chunk": 3,
+}
+INGEST_PARAMS = {"H": 32, "max_interval": 0.05}
+CKPT_KEYS = {"backend", "hint_space", "pairs", "archive", "archive_labels",
+             "archive_n", "failures", "failure_n", "failure_digests", "key",
+             "generations_run", "pop_delays", "pop_faults", "gen",
+             "best_fitness", "best_delays", "best_faults"}
+
+
+@pytest.fixture
+def history(tmp_path):
+    return write_storage(tmp_path / "st", quarantine=False)
+
+
+@pytest.fixture
+def server():
+    s = SidecarServer(port=0, device="cpu")
+    s.start()
+    yield s
+    s.shutdown()
+
+
+def addr(server):
+    return f"127.0.0.1:{server.port}"
+
+
+def search_req(history, ckpt="", **params):
+    return {
+        "op": "search", "key": history.dir, "storage": history.dir,
+        "search_params": dict(SEARCH_PARAMS, **params),
+        "ingest_params": INGEST_PARAMS, "generations": 4,
+        "checkpoint": ckpt,
+    }
+
+
+def test_ping(server):
+    assert request(addr(server), {"op": "ping"}) == {"ok": True,
+                                                     "searches": 0}
+
+
+def test_keep_alive_connection_serves_two_searches(server, history,
+                                                   tmp_path):
+    ckpt = str(tmp_path / "side.npz")
+    with socket.create_connection(("127.0.0.1", server.port)) as s:
+        wire.write_frame(s, {"op": "ping"})
+        assert wire.read_frame(s)["ok"]
+        wire.write_frame(s, search_req(history, ckpt))
+        r1 = wire.read_frame(s)
+        wire.write_frame(s, search_req(history, ckpt))
+        r2 = wire.read_frame(s)
+    assert set(r1) == {"ok", "fitness", "delays", "faults",
+                       "generations_run"}
+    assert r1["ok"] and r2["ok"]
+    assert (r1["generations_run"], r2["generations_run"]) == (4, 8)
+    assert len(r2["delays"]) == len(r2["faults"]) == 32
+    assert np.isfinite(r2["fitness"])
+    search = server.service.search_for(history.dir)
+    assert search.device == torch.device("cpu")
+    # every request re-feeds the history, so the second sees 4 labeled
+    # failures (2 per ingest): the surrogate trains and picks from the
+    # current population, possibly below the best seen
+    assert search._surrogate is not None
+    table = np.asarray(r2["delays"], np.float32)
+    assert any(np.array_equal(table, row)
+               for row in search._state.pop.delays.numpy())
+    assert r2["fitness"] <= search.best().fitness
+    with np.load(ckpt) as z:
+        assert CKPT_KEYS <= set(z.files)
+        assert int(z["generations_run"]) == 8
+    assert request(addr(server), {"op": "ping"})["searches"] == 1
+
+
+def test_unknown_op_bad_storage_and_bad_frames(server):
+    a = addr(server)
+    assert request(a, {"op": "nope"}) == {"ok": False,
+                                          "error": "unknown op 'nope'"}
+    assert not request(a, {"op": "pool_pull"})["ok"]  # knowledge op
+    bad = {"op": "search", "key": "k", "storage": "/nonexistent-st",
+           "search_params": SEARCH_PARAMS, "ingest_params": INGEST_PARAMS,
+           "generations": 1, "checkpoint": ""}
+    resp = request(a, bad)
+    assert not resp["ok"] and resp["error"].startswith("storage:")
+    with socket.create_connection(("127.0.0.1", server.port)) as s:
+        wire.write_frame(s, ["not", "an", "object"])
+        assert wire.read_frame(s)["ok"] is False
+        body = b"\x00\x01"
+        s.sendall(struct.pack("<I", len(body) | wire.BINARY_FRAME_FLAG)
+                  + body)
+        resp = wire.read_frame(s)
+        assert resp["ok"] is False and "binary" in resp["error"]
+        s.sendall(struct.pack("<I", 3) + b"{x]")
+        assert wire.read_frame(s)["ok"] is False
+        wire.write_frame(s, {"op": "ping"})  # the stream stayed in sync
+        assert wire.read_frame(s)["ok"] is True
+
+
+def test_no_history_answer(server, tmp_path):
+    from namazu_tpu.storage import new_storage
+
+    st = new_storage("naive", str(tmp_path / "empty"))
+    st.create()
+    req = search_req(st)
+    assert request(addr(server), req) == {"ok": True, "no_history": True,
+                                          "generations_run": 0}
+
+
+@pytest.mark.parametrize("where,knob,value,what", [
+    ("search", "search_backend", "mcts", "MCTS"),
+    ("search", "guidance", True, "guidance"),
+    ("search", "release_mode", "reorder", "order mode"),
+    ("search", "max_fault", 0.1, "fault search"),
+    ("search", "devices", 4, "several devices"),
+    ("search", "device_trace_dir", "/tmp/trace", "device-trace"),
+    ("ingest", "failure_pool", "/tmp/pool", "failure pool"),
+    ("ingest", "knowledge", "127.0.0.1:1", "knowledge service"),
+    ("ingest", "guidance", True, "guidance"),
+])
+def test_unported_params_are_refused(server, history, where, knob, value,
+                                     what):
+    req = search_req(history)
+    if where == "search":
+        req["search_params"] = dict(req["search_params"], **{knob: value})
+    else:
+        req["ingest_params"] = dict(INGEST_PARAMS, **{knob: value})
+    resp = request(addr(server), req)
+    assert resp["ok"] is False
+    assert resp["error"].startswith("namazu_tpu_torch: ")
+    assert resp["error"].endswith(" is not ported yet")
+    assert what in resp["error"]
+    assert request(addr(server), {"op": "ping"})["searches"] == 0
+
+
+def test_checkpoints_interchange_with_reference_search(server, history,
+                                                       tmp_path):
+    """A port sidecar checkpoint loads into the reference's in-process
+    search; the reference evolves and saves; the port's next request
+    reloads the newer checkpoint and runs its generations on top."""
+    from namazu_tpu.models.ingest import IngestParams, ingest_history
+
+    ckpt = str(tmp_path / "x.npz")
+    r1 = request(addr(server), search_req(history, ckpt))
+    assert r1["ok"] and r1["generations_run"] == 4
+    local = jbuild(SEARCH_PARAMS)
+    assert isinstance(local, JSearch)
+    local.load(ckpt)
+    assert local.generations_run == 4
+    assert np.array_equal(local.best().delays,
+                          np.asarray(r1["delays"], np.float32))
+    refs = ingest_history(local, jload(history.dir),
+                          IngestParams(**INGEST_PARAMS))
+    local.run(refs, generations=6)
+    local.save(ckpt)
+    r2 = request(addr(server), search_req(history, ckpt))
+    assert r2["ok"] and r2["generations_run"] == 10 + 4
+
+
+def test_reference_policy_installs_the_port_table(server, history):
+    """tpu_search with sidecar=<the port's sidecar> installs the table the
+    port computed and never builds a search of its own."""
+    from namazu_tpu.policy import create_policy
+
+    pol = create_policy("tpu_search")
+    pol.load_config(Config({
+        "explore_policy": "tpu_search",
+        "explore_policy_param": {
+            "seed": 5, "max_interval": 50, "hint_buckets": 32,
+            "feature_pairs": 32, "population": 64, "generations": 4,
+            "migrate_k": 2, "fused_chunk": 3,
+            "sidecar": addr(server), "checkpoint": "side_pol.npz",
+        },
+    }))
+    installs = []
+    real = pol._install_tables
+
+    def spy(delays, faults, source):
+        installs.append(source)
+        real(delays, faults, source)
+
+    pol._install_tables = spy
+    pol.set_history_storage(jload(history.dir))
+    pol.start()
+    try:
+        assert pol.wait_for_search(timeout=120)
+    finally:
+        pol.shutdown()
+    assert installs == ["sidecar"]
+    assert pol._search is None  # the heavy path never ran in-process
+    port = server.service.search_for(history.dir)
+    assert port is not None and port.generations_run == 4
+    assert np.array_equal(np.asarray(pol._delays, np.float32),
+                          port.best().delays)
+
+
+def test_cuda_is_the_default_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SidecarServer(port=0)
+
+
+def test_module_entry_point_parses_its_options():
+    out = subprocess.run(
+        [sys.executable, "-m", "namazu_tpu_torch.sidecar", "--help"],
+        capture_output=True, text=True, timeout=120, check=True)
+    assert "--listen" in out.stdout and "--device" in out.stdout
+
+
+def test_chip_smoke_carries_the_policy_defaults(tmp_path):
+    """chip_smoke.py's sidecar phase sends what a default tpu_search
+    policy sends (its fingerprint-derived scenario aside), and rehearses
+    on the CPU at a tiny size."""
+    import chip_smoke
+    from namazu_tpu.policy.tpu import TPUSearchPolicy
+
+    pol = TPUSearchPolicy()
+    assert chip_smoke.POLICY_SEARCH_PARAMS == pol._search_params()
+    want = pol._ingest_params()._asdict()
+    got = dict(chip_smoke.POLICY_INGEST_PARAMS)
+    for k in ("knowledge_tenant", "knowledge_scenario"):
+        want.pop(k), got.pop(k)
+    assert got == want
+    sp = dict(chip_smoke.POLICY_SEARCH_PARAMS, H=32, K=32, population=64,
+              fused_chunk=3)
+    ip = dict(chip_smoke.POLICY_INGEST_PARAMS, H=32)
+    launches = chip_smoke.drive_sidecar_path(
+        "cpu", str(tmp_path), generations=3, search_params=sp,
+        ingest_params=ip, runs=12, failures=4, events=200)
+    assert launches == {"min_sq_pair": 0, "min_sq": 0}
