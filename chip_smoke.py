@@ -3,17 +3,25 @@
 search plane. Needs one CUDA card (an H100 for the sm_90a kernels) and
 nvcc; run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --kernels-only  # phases 1-2, untimed
 
 Phases, each of which fails the script on any error:
 
 1. card: the card's name and power limit, torch and CUDA versions, and
    the build of every kernel under namazu_tpu_torch/csrc/ (nvcc output
-   with ptxas's register report included);
+   with ptxas's register report included), with the count of tensor-core
+   products (HGMMA) and TMA loads (UTMALDG) in each library's SASS; none
+   of either fails the phase;
 2. kernels: each kernel (B1 the pair distance, B2 the single-archive
-   distance) against its plain PyTorch version on the card at the main
-   path's shape and at ragged shapes and occupancies, with its time, the
-   plain version's time, a library call's time and the bound;
+   distance) against its plain PyTorch version on the card, in f32 and in
+   f64, at the main path's shape, at ragged shapes, widths and
+   occupancies, on near-binary rows with exact and near duplicates (held
+   to the f64 plain version alone: where d2 cancels to 0 the f32 one's
+   own rounding exceeds atol) and on the main path's own feature rows;
+   then its time (warm and
+   with a cold L2), the plain version's, a library call's, and the bound
+   the split-TF32 tensor-core arithmetic sets;
 3. fused search: ScheduleSearch on the card at the tpu_search policy's
    sizes (population 4096, H = K = 256, archive 512, failures 64, chunks
    of 16 generations, surrogate off) against 4 reference traces of 2000
@@ -50,9 +58,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 RTOL, ATOL = 1e-3, 1e-4
-# published H100 SXM peaks: HBM bandwidth and non-tensor f32 rate
+# published H100 SXM peaks: HBM bandwidth, TF32 on the tensor cores (dense)
+# and non-tensor f32
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_TF32_FLOP_PER_S = 495e12
 PEAK_F32_FLOP_PER_S = 67e12
+# B1 and B2 take the cross term as three TF32 products (hi.hi' + hi.lo' +
+# lo.hi'), so the tensor cores do three times the f32 product's work
+TF32_SPLIT_PRODUCTS = 3
+L2_FLUSH_BYTES = 128 << 20  # written before each cold-L2 launch (L2: 50 MB)
 MAIN_SHAPE = (16384, 512, 64, 256)  # N = P*T, A, F, K on the main path
 SINGLE_SHAPE = (16384, 512, 256)  # B2 held at N, A, K
 POPULATION, H, K, TRACES, EVENTS, GENERATIONS = 4096, 256, 256, 4, 2000, 64
@@ -120,7 +134,66 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / iters
 
 
+# -- phase 1: the kernels' machine code ------------------------------------
+
+
+def cuobjdump() -> str:
+    """The toolkit's cuobjdump, or the copy Triton ships."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "cuobjdump")):
+            return os.path.join(root, "bin", "cuobjdump")
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    import triton
+
+    path = os.path.join(os.path.dirname(triton.__file__), "backends",
+                        "nvidia", "bin", "cuobjdump")
+    check(os.path.isfile(path), "no cuobjdump found")
+    return path
+
+
+def sass_counts(lib, ops=("HGMMA", "UTMALDG")) -> dict:
+    """Per kernel function of the library ``lib``: how many of its SASS
+    instructions are each of ``ops`` (the tensor-core product, the TMA
+    tile load)."""
+    out = subprocess.run([cuobjdump(), "-sass", str(lib)],
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                if op in line:
+                    counts[fn][op] += 1
+    return counts
+
+
 # -- phase 2: kernels against their plain versions --------------------------
+
+
+def cuda_time_cold_ms(fn, iters: int = 20) -> float:
+    """Mean time of ``fn`` with a cold L2: a buffer larger than the L2 is
+    written before each launch, and only the launches are timed."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    fn()
+    events = []
+    for _ in range(iters):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        events.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / iters
 
 
 def pair_inputs(N, A, F, K, seed, device):
@@ -131,22 +204,44 @@ def pair_inputs(N, A, F, K, seed, device):
                  for n in (N, A, F))
 
 
-def pair_bound_ms(N, A, F, K):
-    nbytes = 4 * (N * K + (A + F) * K + 2 * N)
-    flops = 2 * N * (A + F) * K
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+def near_binary_inputs(N, A, F, K, seed, device, exact_archive=True):
+    """Feature rows near 0 or 1 (as the sigmoid precedence features are),
+    with archive and failure rows copied from feature rows: exact copies
+    in one segment (d2 = 0, the worst cancellation) and copies moved by
+    +-1e-3 per coordinate in the other."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    feats = torch.sigmoid(8 * torch.randn((N, K), generator=g,
+                                          device=device))
+
+    def copies(n, jitter):
+        idx = torch.randint(0, N, (n,), generator=g, device=device)
+        rows = feats[idx].clone()
+        if jitter:
+            sign = 2 * torch.randint(0, 2, rows.shape, generator=g,
+                                     device=device) - 1
+            rows += jitter * sign
+        return rows
+
+    archive = copies(A, 0.0 if exact_archive else 1e-3)
+    failures = copies(F, 1e-3 if exact_archive else 0.0)
+    return feats, archive, failures
 
 
-def single_bound_ms(N, A, K):
-    nbytes = 4 * (N * K + A * K + N)
-    flops = 2 * N * A * K
+def bounds_ms(N, rows, K, outputs):
+    """``(bound_ms, bound_by, bound_f32_simt_ms)`` of min distances from
+    ``N`` feature rows to ``rows`` column rows of width ``K`` with
+    ``outputs`` [N] results: bytes (each input read once, each output
+    written once) at the HBM rate against the split-TF32 products on the
+    tensor cores; the last is the same against f32 on the CUDA cores."""
+    nbytes = 4 * (N * K + rows * K + outputs * N)
+    flops = 2 * N * rows * K
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+    t_tf32 = TF32_SPLIT_PRODUCTS * flops / PEAK_TF32_FLOP_PER_S * 1e3
+    t_simt = max(t_bytes, flops / PEAK_F32_FLOP_PER_S * 1e3)
+    return (max(t_bytes, t_tf32),
+            "bytes" if t_bytes >= t_tf32 else "operations", t_simt)
 
 
 def compare(name, got, want, where) -> float:
@@ -167,114 +262,195 @@ def compare(name, got, want, where) -> float:
     return err
 
 
-def check_single_kernel(device) -> dict:
+def real_feature_rows(search, refs):
+    """The main path's own B1 inputs: the population's feature rows
+    (``_genome_features``, flattened to [P*T, K]) and the search's device
+    archives, with its occupancies."""
+    from namazu_tpu_torch.ops import schedule as sched
+
+    traces, pairs, archive, failures = search._device_inputs(refs)
+    feats = sched._genome_features(search._state.pop.delays, traces, pairs,
+                                   search.cfg.weights.tau)
+    return (feats.reshape(-1, feats.shape[-1]).contiguous(), archive,
+            failures, search._archive_n, search._failure_n)
+
+
+def timing(kernel, plain, library, bound) -> dict:
+    bound_ms, bound_by, simt_ms = bound
+    return {
+        "ms": cuda_time_ms(kernel),
+        "ms_cold_l2": cuda_time_cold_ms(kernel),
+        "plain_ms": cuda_time_ms(plain),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "bound_ops": "tf32x3",
+        "bound_f32_simt_ms": simt_ms,
+        "library_ms": cuda_time_ms(library),
+    }
+
+
+def report(name, shape, numbers, max_err) -> None:
+    print(f"  {name} at {shape}: kernel_ms {numbers['ms']:.5f} "
+          f"cold_l2_ms {numbers['ms_cold_l2']:.5f} "
+          f"plain_ms {numbers['plain_ms']:.5f} "
+          f"library_ms {numbers['library_ms']:.5f} "
+          f"bound_us {numbers['bound_ms'] * 1e3:.3f} "
+          f"({numbers['bound_by']}, tf32x3; "
+          f"{numbers['bound_ms'] / numbers['ms']:.1%} of it) "
+          f"f32_simt_bound_us "
+          f"{numbers['bound_f32_simt_ms'] * 1e3:.3f} "
+          f"max_abs_err {max_err:.3e}")
+
+
+def check_case(name, kernel, plain, tensors, occ, label, cancels) -> float:
+    """One kernel case against its plain version on the same inputs, in
+    f32 and in f64; returns the max abs error the case is held to. Every
+    case must lie within rtol/atol of the f64 plain version. A case whose
+    distances cancel to ~0 (duplicate rows) is held to that alone: there
+    the f32 plain version's own error reaches ~1.5e-4 (see PERF.md), so
+    atol 1e-4 against it would judge the plain version, not the kernel;
+    its f32 error is printed beside. Every other case must also lie within
+    rtol/atol of the f32 plain version."""
+    import torch
+
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    got = as_tuple(kernel(*tensors, **occ))
+    want32 = as_tuple(plain(*tensors, **occ))
+    want64 = tuple(w.float() for w in as_tuple(
+        plain(*(t.double() for t in tensors), **occ)))
+    torch.cuda.synchronize()
+    err = 0.0
+    notes = []
+    for i, (g, w32, w64) in enumerate(zip(got, want32, want64)):
+        out = f"{name} output {i}"
+        err64 = compare(out, g, w64, f"{label}, against f64")
+        if cancels:
+            live = w64 < 1e30
+            plain_err = float((w32[live] - w64[live]).abs().max())
+            notes.append(f"output {i}: kernel {err64:.3e} from f64, f32 "
+                         f"plain {plain_err:.3e} from f64")
+            err = max(err, err64)
+        else:
+            err = max(err, err64, compare(out, g, w32, label))
+    print(f"  {name}, {label}: within rtol {RTOL} atol {ATOL} of the plain "
+          f"version" + (" in f64; " + "; ".join(notes) if cancels else
+                        " in f32 and in f64"))
+    return err
+
+
+def check_single_kernel(device, real=None, timed=True) -> dict:
     import torch
 
     from namazu_tpu_torch.ops import pair_distance as pd
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [
-        (SINGLE_SHAPE, None), (SINGLE_SHAPE, 300), (SINGLE_SHAPE, 0),
-        ((33, 7, 64), None), ((33, 7, 64), 3), ((33, 7, 64), 0),
-        ((300, 100, 128), 50),
-    ]
+    cases = [(f"uniform {s} valid_n {vn}", pair_inputs(*s[:2], 1, s[2],
+                                                        200 + i, device)[:2],
+              vn, False)
+             for i, (s, vn) in enumerate([
+                 (SINGLE_SHAPE, None), (SINGLE_SHAPE, 300),
+                 (SINGLE_SHAPE, 0), ((33, 7, 64), None), ((33, 7, 64), 3),
+                 ((33, 7, 64), 0), ((300, 100, 128), 50),
+                 ((16384 + 37, 512, 100), None), ((4096 + 5, 200, 512), 150),
+             ])]
+    cases.append(("near-binary, exact duplicates "
+                  f"{SINGLE_SHAPE}", near_binary_inputs(
+                      SINGLE_SHAPE[0], SINGLE_SHAPE[1], 1, SINGLE_SHAPE[2],
+                      210, device)[:2], None, True))
+    cases.append(("near-binary, near duplicates "
+                  f"{SINGLE_SHAPE}", near_binary_inputs(
+                      SINGLE_SHAPE[0], SINGLE_SHAPE[1], 1, SINGLE_SHAPE[2],
+                      211, device, exact_archive=False)[:2], None, True))
+    if real is not None:
+        feats, archive, _, an, _ = real
+        cases.append((f"main-path feature rows {tuple(feats.shape)} "
+                      f"archive_n {an}", (feats, archive), an, False))
     max_err = 0.0
-    for i, ((N, A, Kc), vn) in enumerate(cases):
-        feats, archive, _ = pair_inputs(N, A, 1, Kc, 200 + i, device)
-        got = pd.min_sq_distance(feats, archive, vn)
-        want = pd.min_sq_distance_reference(feats, archive, vn)
-        torch.cuda.synchronize()
-        max_err = max(max_err, compare("single kernel", got, want,
-                                       f"{(N, A, Kc)} valid_n {vn}"))
-        print(f"  single kernel {(N, A, Kc)} valid_n {vn}: within rtol "
-              f"{RTOL} atol {ATOL} of the plain version")
-    N, A, Kc = SINGLE_SHAPE
-    feats, archive, _ = pair_inputs(N, A, 1, Kc, 8, device)
-    kernel_ms = cuda_time_ms(lambda: pd.min_sq_distance(feats, archive))
-    plain_ms = cuda_time_ms(
-        lambda: pd.min_sq_distance_reference(feats, archive))
-    library_ms = cuda_time_ms(
-        lambda: torch.cdist(feats, archive).square().amin(1))
-    bound_ms, bound_by = single_bound_ms(N, A, Kc)
-    torch.cuda.synchronize()
-    print(f"  single kernel at {SINGLE_SHAPE}: kernel_ms {kernel_ms:.5f} "
-          f"plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} "
-          f"bound_us {bound_ms * 1e3:.3f} ({bound_by}) "
-          f"max_abs_err {max_err:.3e}")
-    return {
+    for label, tensors, vn, cancels in cases:
+        max_err = max(max_err, check_case(
+            "single kernel", pd.min_sq_distance, pd.min_sq_distance_reference,
+            tensors, {"valid_n": vn}, label, cancels))
+    out = {
         "name": "min_sq",
         "route": "cuda",
         "source": "namazu_tpu_torch/csrc/min_sq_pair.cu",
         "replaces": "namazu_tpu/ops/pallas_score.py:54",
         "launches": None,
         "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
     }
+    if timed:
+        N, A, Kc = SINGLE_SHAPE
+        feats, archive, _ = pair_inputs(N, A, 1, Kc, 8, device)
+        out.update(timing(
+            lambda: pd.min_sq_distance(feats, archive),
+            lambda: pd.min_sq_distance_reference(feats, archive),
+            lambda: torch.cdist(feats, archive).square().amin(1),
+            bounds_ms(N, A, Kc, 1)))
+        report("single kernel", SINGLE_SHAPE, out, max_err)
+    return out
 
 
-def check_pair_kernel(device) -> dict:
+def check_pair_kernel(device, real=None, timed=True) -> dict:
     import torch
 
     from namazu_tpu_torch.ops import pair_distance as pd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cases = [
-        (MAIN_SHAPE, None, None),
-        (MAIN_SHAPE, 300, 0),
-        (MAIN_SHAPE, 0, 17),
-        ((33, 7, 5, 64), None, None),
-        ((33, 7, 5, 64), 3, 0),
-        ((300, 100, 7, 128), 100, 7),
-        ((300, 100, 7, 128), 50, 1),
-    ]
+    cases = [(f"uniform {s} occ {(an, fn)}", pair_inputs(*s, 100 + i, device),
+              an, fn, False)
+             for i, (s, an, fn) in enumerate([
+                 (MAIN_SHAPE, None, None),
+                 (MAIN_SHAPE, 300, 0),
+                 (MAIN_SHAPE, 0, 17),
+                 ((33, 7, 5, 64), None, None),
+                 ((33, 7, 5, 64), 3, 0),
+                 ((300, 100, 7, 128), 100, 7),
+                 ((300, 100, 7, 128), 50, 1),
+                 ((16384 + 37, 512, 1, 100), None, None),
+                 ((4096 + 5, 200, 9, 512), 150, 9),
+             ])]
+    for i, exact in enumerate((True, False)):
+        what = "exact archive, near failures" if exact else \
+            "near archive, exact failures"
+        cases.append((f"near-binary, {what} {MAIN_SHAPE}",
+                      near_binary_inputs(*MAIN_SHAPE, 110 + i, device,
+                                         exact_archive=exact), None, None,
+                      True))
+    if real is not None:
+        feats, archive, failures, an, fn = real
+        cases.append((f"main-path feature rows {tuple(feats.shape)}",
+                      (feats, archive, failures), None, None, False))
+        cases.append((f"main-path feature rows occ {(an, fn)}",
+                      (feats, archive, failures), an, fn, False))
     max_err = 0.0
-    for i, ((N, A, F, Kc), an, fn) in enumerate(cases):
-        feats, archive, failures = pair_inputs(N, A, F, Kc, 100 + i, device)
-        got = pd.min_sq_distance_pair(feats, archive, failures,
-                                      archive_n=an, failure_n=fn)
-        want = pd.min_sq_distance_pair_reference(feats, archive, failures,
-                                                 archive_n=an, failure_n=fn)
-        torch.cuda.synchronize()
-        for g, w, name in zip(got, want, ("nov", "bug")):
-            max_err = max(max_err, compare(
-                f"pair kernel {name}", g, w, f"{(N, A, F, Kc)} occ "
-                                             f"{(an, fn)}"))
-        print(f"  pair kernel {(N, A, F, Kc)} occ {(an, fn)}: within "
-              f"rtol {RTOL} atol {ATOL} of the plain version")
-
-    N, A, F, Kc = MAIN_SHAPE
-    feats, archive, failures = pair_inputs(N, A, F, Kc, 7, device)
-    kernel_ms = cuda_time_ms(
-        lambda: pd.min_sq_distance_pair(feats, archive, failures))
-    plain_ms = cuda_time_ms(
-        lambda: pd.min_sq_distance_pair_reference(feats, archive, failures))
-    library_ms = cuda_time_ms(lambda: (
-        torch.cdist(feats, archive).square().amin(1),
-        torch.cdist(feats, failures).square().amin(1)))
-    bound_ms, bound_by = pair_bound_ms(N, A, F, Kc)
-    torch.cuda.synchronize()
-    print(f"  pair kernel at {MAIN_SHAPE}: kernel_ms {kernel_ms:.5f} "
-          f"plain_ms {plain_ms:.5f} library_ms {library_ms:.5f} "
-          f"bound_us {bound_ms * 1e3:.3f} ({bound_by}) "
-          f"max_abs_err {max_err:.3e}")
-    return {
+    for label, tensors, an, fn, cancels in cases:
+        max_err = max(max_err, check_case(
+            "pair kernel", pd.min_sq_distance_pair,
+            pd.min_sq_distance_pair_reference, tensors,
+            {"archive_n": an, "failure_n": fn}, label, cancels))
+    out = {
         "name": "min_sq_pair",
         "route": "cuda",
         "source": "namazu_tpu_torch/csrc/min_sq_pair.cu",
         "replaces": "namazu_tpu/ops/pallas_score.py:157",
         "launches": None,
         "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
     }
+    if timed:
+        N, A, F, Kc = MAIN_SHAPE
+        feats, archive, failures = pair_inputs(N, A, F, Kc, 7, device)
+        out.update(timing(
+            lambda: pd.min_sq_distance_pair(feats, archive, failures),
+            lambda: pd.min_sq_distance_pair_reference(feats, archive,
+                                                      failures),
+            lambda: (torch.cdist(feats, archive).square().amin(1),
+                     torch.cdist(feats, failures).square().amin(1)),
+            bounds_ms(N, A + F, Kc, 2)))
+        report("pair kernel", MAIN_SHAPE, out, max_err)
+    return out
 
 
 # -- phase 3: the main path -------------------------------------------------
@@ -343,16 +519,17 @@ def rescore_on_cpu(search, refs, delays):
     return float(fit[0])
 
 
-def drive_main_path(device, generations=GENERATIONS, **sizes):
-    """Two ``run()`` calls of the search; returns the kernel launches they
-    made, the search and its reference traces."""
+def drive_main_path(device, generations=GENERATIONS, built=None, **sizes):
+    """Two ``run()`` calls of the search (``built``: a ``(search, refs)``
+    from :func:`build_search`, else one is built from ``sizes``); returns
+    the kernel launches they made, the search and its reference traces."""
     from namazu_tpu_torch.ops import pair_distance as pd
 
     t0 = time.perf_counter()
-    search, refs = build_search(device, **sizes)
-    setup_s = time.perf_counter() - t0
+    search, refs = built or build_search(device, **sizes)
+    setup = "prebuilt" if built else f"{time.perf_counter() - t0:.2f} s"
     L = refs[0].hint_ids.shape[0]
-    print(f"  setup {setup_s:.2f} s: {len(refs)} reference traces of "
+    print(f"  setup {setup}: {len(refs)} reference traces of "
           f"L={L}, archive {search._archive_n}, failures "
           f"{search._failure_n}")
     if device != "cpu":
@@ -595,9 +772,16 @@ def drive_sidecar_path(device, work_dir, generations=GENERATIONS,
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build and check the kernels (phases 1-2, "
+                         "untimed), then stop without the result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -617,15 +801,30 @@ def main() -> int:
         log = _build.build_log(name).strip()
         if log:
             print(f"  nvcc {name}: {log}")
+        counts = sass_counts(_build.lib_path(name))
+        for fn, c in sorted(counts.items()):
+            print(f"  sass {name} {fn}: {c}")
+        for op in ("HGMMA", "UTMALDG"):
+            total = sum(c[op] for c in counts.values())
+            print(f"  sass {name}: {total} {op} instructions")
+            check(total > 0, f"{name}: no {op} instruction in its SASS")
 
     print("phase: kernels against their plain versions")
-    pair = check_pair_kernel("cuda")
-    single = check_single_kernel("cuda")
+    built_search = build_search("cuda")
+    real = real_feature_rows(*built_search)
+    timed = not args.kernels_only
+    pair = check_pair_kernel("cuda", real, timed)
+    single = check_single_kernel("cuda", real, timed)
+    del real
+    if args.kernels_only:
+        return 0
 
     print("phase: fused search")
     from namazu_tpu_torch.ops import pair_distance as pd
 
-    fused_launches, search, refs = drive_main_path("cuda")
+    fused_launches, search, refs = drive_main_path("cuda",
+                                                   built=built_search)
+    del built_search
     fused = {"min_sq_pair": fused_launches, "min_sq": pd.SINGLE_LAUNCHES}
     torch.cuda.synchronize()
 

@@ -47,7 +47,7 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
@@ -65,7 +65,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     started = {}
     seconds = {n: 0.0 for n in names}
     for n in names:
-        out = _lib_path(n)
+        out = lib_path(n)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -101,6 +101,6 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(lib_path(name)))
             _libs[name] = lib
         return lib

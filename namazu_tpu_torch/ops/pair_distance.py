@@ -6,9 +6,11 @@ feature rows ``feats [N, K]``, the smallest squared distance to the
 archive rows (novelty) and to the failure rows (bug affinity) in one
 pass. ``min_sq_distance`` (B2, ``pallas_score.py:54-103``) is the
 one-archive case, masked by ``valid_n``. On CUDA tensors both launch the
-hand-written kernels of ``csrc/min_sq_pair.cu`` or raise; on CPU tensors
-they run the plain PyTorch versions :func:`min_sq_distance_pair_reference`
-and :func:`min_sq_distance_reference` (matmul expansion, one ``amin`` per
+hand-written Hopper kernels of ``csrc/min_sq_pair.cu`` (TMA loads, the
+cross term in split TF32 on the tensor cores, f32 accuracy) or raise; on
+CPU tensors they run the plain PyTorch versions
+:func:`min_sq_distance_pair_reference` and
+:func:`min_sq_distance_reference` (matmul expansion, one ``amin`` per
 segment, the same masking).
 """
 
@@ -36,7 +38,8 @@ _fns = None
 
 
 def _kernels():
-    """``(pair entry, single entry, error string)`` of the built library."""
+    """``(pair entry, single entry, error string, widest K)`` of the built
+    library."""
     global _fns
     if _fns is None:
         lib = _build.load("min_sq_pair")
@@ -50,7 +53,10 @@ def _kernels():
         single.restype = ctypes.c_int
         lib.nmz_cuda_error_string.argtypes = [ctypes.c_int]
         lib.nmz_cuda_error_string.restype = ctypes.c_char_p
-        _fns = (pair, single, lib.nmz_cuda_error_string)
+        lib.nmz_min_sq_max_k.argtypes = []
+        lib.nmz_min_sq_max_k.restype = ctypes.c_int
+        _fns = (pair, single, lib.nmz_cuda_error_string,
+                lib.nmz_min_sq_max_k())
     return _fns
 
 
@@ -111,7 +117,13 @@ def _check_all(what: str, feats: torch.Tensor, *rows: torch.Tensor
     for i, t in enumerate(rows):
         _check(("archive", "failures")[i], t, dev, K)
     if K % 4:
+        # TMA rows: a 16-byte aligned base (checked above) and a row
+        # stride of 4*K bytes, a multiple of 16
         raise ValueError(f"feature width K={K} must be a multiple of 4")
+    max_k = _kernels()[3]
+    if K > max_k:
+        raise ValueError(f"feature width K={K} exceeds {max_k}, the widest "
+                         f"feature tile the kernel keeps resident")
     if max(N, *(t.shape[0] for t in rows)) * K >= 2 ** 31:
         raise ValueError(f"{what}: shapes exceed int32 range")
 
@@ -120,7 +132,7 @@ def _raise_if_failed(rc: int, what: str) -> None:
     if rc != 0:
         err_str = _kernels()[2]
         raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{err_str(rc).decode()} (cudaError {rc})")
+                           f"{err_str(rc).decode()} (code {rc})")
 
 
 def _launch(feats, archive, failures, archive_n, failure_n):

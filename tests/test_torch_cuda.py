@@ -8,7 +8,9 @@ without one; on a machine with a card run
 
 (``--noconftest`` skips tests/conftest.py, which sets JAX up; these tests
 import no JAX.) Tolerance: rtol 1e-3 / atol 1e-4 (f32 sums in another
-order), TF32 off."""
+order), TF32 off. Where distances cancel to 0 (duplicate rows) the f32
+plain version is itself ~1.5e-4 from exact, so those cases hold the
+kernels to the plain version run in float64."""
 
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 
 from namazu_tpu_torch.models.search import ScheduleSearch, SearchConfig
 from namazu_tpu_torch.ops import pair_distance as pd
+from namazu_tpu_torch.ops import schedule as sched
 from namazu_tpu_torch.ops import trace_encoding as te
 
 pytestmark = pytest.mark.cuda
@@ -66,6 +69,82 @@ def test_single_kernel_matches_plain_version(card, N, A, K, valid_n):
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
+def near_binary(g, n, K, card):
+    return torch.sigmoid(8 * torch.randn((n, K), generator=g, device=card))
+
+
+def copies(g, feats, n, jitter):
+    rows = feats[torch.randint(0, feats.shape[0], (n,), generator=g,
+                               device=feats.device)].clone()
+    if jitter:
+        rows += jitter * (2 * torch.randint(0, 2, rows.shape, generator=g,
+                                            device=feats.device) - 1)
+    return rows
+
+
+@pytest.mark.parametrize("jitter", [0.0, 1e-3])
+def test_kernels_on_duplicate_rows_match_plain_version_in_f64(card, jitter):
+    """Near-binary features against archive rows copied from them (d2 = 0)
+    or moved by +-1e-3, at the main path's shape."""
+    g = torch.Generator(device=card).manual_seed(7 + int(jitter * 1e4))
+    feats = near_binary(g, 16384, 256, card)
+    archive, failures = copies(g, feats, 512, jitter), copies(g, feats, 64,
+                                                              1e-3 - jitter)
+    got = pd.min_sq_distance_pair(feats, archive, failures)
+    want = pd.min_sq_distance_pair_reference(feats.double(),
+                                             archive.double(),
+                                             failures.double())
+    single = pd.min_sq_distance(feats, archive)
+    torch.cuda.synchronize()
+    for x, y in zip(got + (single,), want + want[:1]):
+        torch.testing.assert_close(x, y.float(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("N,A,F,K,an,fn", [
+    (16384 + 37, 512, 1, 100, None, None),  # ragged N, K % 32 != 0, F = 1
+    (4096 + 5, 200, 9, 512, 150, 9),  # one consumer warpgroup
+])
+def test_kernels_at_ragged_widths(card, N, A, F, K, an, fn):
+    g = torch.Generator(device=card).manual_seed(K)
+    feats, archive, failures = (torch.rand((n, K), generator=g,
+                                           device=card) for n in (N, A, F))
+    got = pd.min_sq_distance_pair(feats, archive, failures, an, fn)
+    single = pd.min_sq_distance(feats, archive, an)
+    want = pd.min_sq_distance_pair_reference(feats, archive, failures, an,
+                                             fn)
+    torch.cuda.synchronize()
+    for x, y in zip(got + (single,), want + want[:1]):
+        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+
+
+def test_kernels_on_the_search_s_own_feature_rows(card):
+    rng = np.random.RandomState(2)
+
+    def enc(n):
+        return te.encode_event_stream(
+            [f"h{rng.randint(40)}" for _ in range(n)],
+            arrivals=np.sort(rng.rand(n)).tolist(), H=64)
+
+    s = ScheduleSearch(SearchConfig(H=64, K=64, population=256,
+                                    archive_size=32, failure_size=8),
+                       device=card)
+    for i in range(6):
+        s.add_executed_trace(enc(200), reproduced=i == 0)
+    s.add_failure_trace(enc(200))
+    traces, pairs, archive, failures = s._device_inputs([enc(300),
+                                                         enc(1200)])
+    feats = sched._genome_features(s._state.pop.delays, traces, pairs,
+                                   s.cfg.weights.tau)
+    feats = feats.reshape(-1, feats.shape[-1]).contiguous()
+    for occ in ((None, None), (s._archive_n, s._failure_n)):
+        got = pd.min_sq_distance_pair(feats, archive, failures, *occ)
+        want = pd.min_sq_distance_pair_reference(feats, archive, failures,
+                                                 *occ)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     feats = torch.rand((16, 32), device=card)
     rows = torch.rand((8, 32), device=card)
@@ -77,6 +156,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         pd.min_sq_distance_pair(feats[:, :30].contiguous(),
                                 rows[:, :30].contiguous(),
                                 rows[:, :30].contiguous())
+    wide = torch.rand((16, 644), device=card)
+    with pytest.raises(ValueError, match="exceeds 640"):
+        pd.min_sq_distance(wide, wide[:8].contiguous())
 
 
 def test_small_search_launches_once_per_generation(card):

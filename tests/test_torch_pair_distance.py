@@ -166,3 +166,83 @@ def test_single_empty_archive_raises():
     with pytest.raises(ValueError, match="empty archive"):
         pd.min_sq_distance(torch.from_numpy(feats),
                            torch.from_numpy(archive[:0]))
+
+
+# -- the card kernels' split-TF32 arithmetic, emulated in numpy -------------
+#
+# On the card, B1 and B2 take the cross term f.a on the tensor cores in
+# TF32 (10 mantissa bits), split as x = hi + lo with hi = rna(x) and
+# lo = rna(x - hi), f.a ~ hi.hi' + hi.lo' + lo.hi', every coordinate first
+# shifted by -1/2 (csrc/min_sq_pair.cu). The kernel cannot run here; these
+# cases pin the precision decision: three products hold the min d2 within
+# 3e-5 of exact arithmetic where it cancels to 0, one TF32 pass does not
+# hold atol 1e-4.
+
+
+def tf32_rna(x):
+    """f32 ``x`` rounded to the nearest TF32 value, ties away from zero
+    (cvt.rna.tf32.f32): add half of the 13 dropped bits to the magnitude,
+    then clear them."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def split_tf32_min_d2(feats, rows, products):
+    """Min d2 of each feature row to ``rows`` as the kernels compute it:
+    f32 norms of the centred rows, the cross term from ``products`` TF32
+    products (3: hi.hi' + hi.lo' + lo.hi'; 1: hi.hi'), each product exact
+    and summed exactly, as the tensor cores do within a box."""
+    fc, rc = feats - np.float32(0.5), rows - np.float32(0.5)
+    fh, rh = tf32_rna(fc), tf32_rna(rc)
+    fl, rl = tf32_rna(fc - fh), tf32_rna(rc - rh)
+    wide = [x.astype(np.float64) for x in (fh, fl, rh, rl)]
+    cross = wide[0] @ wide[2].T
+    if products == 3:
+        cross += wide[0] @ wide[3].T + wide[1] @ wide[2].T
+    f2 = (fc * fc).sum(1, dtype=np.float32)
+    r2 = (rc * rc).sum(1, dtype=np.float32)
+    d2 = (f2[:, None] + r2[None]) - np.float32(2) * cross.astype(np.float32)
+    return np.maximum(d2.min(1), 0.0)
+
+
+def duplicate_inputs(dist, dup, seed, N=512, A=64, K=256):
+    """Feature rows uniform in [0, 1) or near-binary (sigmoid of 8 x a
+    normal, as the precedence features are), and rows copied from them:
+    exactly (d2 = 0) or moved by +-1e-3 per coordinate."""
+    rng = np.random.RandomState(seed)
+    if dist == "uniform":
+        feats = rng.rand(N, K).astype(np.float32)
+    else:
+        feats = (1.0 / (1.0 + np.exp(-8.0 * rng.randn(N, K)))).astype(
+            np.float32)
+    rows = feats[rng.choice(N, A, replace=False)].copy()
+    if dup == "near":
+        rows = (rows + 1e-3 * rng.choice([-1.0, 1.0], rows.shape)).astype(
+            np.float32)
+    return feats, rows
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("dup", ["exact", "near"])
+@pytest.mark.parametrize("dist", ["uniform", "near-binary"])
+def test_split_tf32_holds_f32_accuracy(dist, dup, seed):
+    feats, rows = duplicate_inputs(dist, dup, seed)
+    exact = ((feats.astype(np.float64)[:, None] - rows[None]) ** 2).sum(
+        -1).min(1)
+    three = split_tf32_min_d2(feats, rows, products=3)
+    one = split_tf32_min_d2(feats, rows, products=1)
+    assert np.abs(three - exact).max() <= 3e-5
+    assert np.abs(one - exact).max() > 1e-4
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    ulp = 2.0 ** -10  # TF32 spacing in [1, 2)
+    x = np.array([1.0, 1.0 + ulp / 4, 1.0 + ulp / 2, 1.0 + 3 * ulp / 4,
+                  -(1.0 + ulp / 2), 0.0], np.float32)
+    want = np.array([1.0, 1.0, 1.0 + ulp, 1.0 + ulp, -(1.0 + ulp), 0.0],
+                    np.float32)
+    np.testing.assert_array_equal(tf32_rna(x), want)
+    lo = tf32_rna(x - tf32_rna(x))
+    assert np.all(np.abs(x - tf32_rna(x)) <= ulp / 2)
+    assert np.all(np.abs(lo) <= ulp / 2)
