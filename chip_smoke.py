@@ -38,10 +38,30 @@ Phases, each of which fails the script on any error:
    surrogate re-rank and checkpoint. B1 must launch 2 * 64 + 2 times
    (once per generation, once per re-rank), the surrogate must train,
    the checkpoint must hold the reference's keys, and the returned table
-   re-scored on the CPU must give the returned fitness.
+   re-scored on the CPU must give the returned fitness;
+6. fault path: a second storage of 48 runs of 2000 actions (8 failures)
+   whose every fourth flow records as ProcSetEvent (a class that carries
+   no fault), and two requests at the policy's defaults with
+   ``max_fault = 0.1``: B1 launches 2 * 64 + 2 times, the returned fault
+   table lies in [0, 0.1] and is not all zero, the table and its faults
+   re-scored on the CPU with the coin give the returned fitness; a
+   generation's layers are timed alone and traced, as in phase 4;
+7. order path: the same storage with ``release_mode = "reorder"``
+   (reorder window 0.05 s, gap 0.002 s; ingest caps traces at 4096
+   events): the same checks and timings as phase 6, and the order-mode
+   feature step timed alone at [4096, 4, 2048] and [4096, 4, 4096] with
+   its peak device memory;
+8. MCTS path: the same storage with ``search_backend = "mcts"`` at the
+   policy's MCTS defaults (256 simulations, depth 24, 8 levels, 64
+   rollouts), one search a request: B1 launches 2 * 256 times, the
+   checkpoint says ``backend = "mcts"``, the returned table re-scored on
+   the CPU gives the returned fitness; simulations/s and rollouts/s,
+   and one search traced for the device's busy share.
 
-The last lines are the card line, a JSON line with every kernel's
-numbers, and ``{"ok": true, "device": {...}}``.
+Phase 2 also holds B1 at the rollout shapes N = 256 and N = 64 (A = 512,
+F = 64, K = 256) and times it there. The last lines are the card line, a
+JSON line with every kernel's numbers (launches on every path), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -68,6 +88,9 @@ PEAK_F32_FLOP_PER_S = 67e12
 TF32_SPLIT_PRODUCTS = 3
 L2_FLUSH_BYTES = 128 << 20  # written before each cold-L2 launch (L2: 50 MB)
 MAIN_SHAPE = (16384, 512, 64, 256)  # N = P*T, A, F, K on the main path
+# B1 in an MCTS rollout: N = rollouts * traces (64 * 4), and 64 rows with
+# one envelope reference trace
+ROLLOUT_SHAPES = ((256, 512, 64, 256), (64, 512, 64, 256))
 SINGLE_SHAPE = (16384, 512, 256)  # B2 held at N, A, K
 POPULATION, H, K, TRACES, EVENTS, GENERATIONS = 4096, 256, 256, 4, 2000, 64
 HISTORY_RUNS, HISTORY_FAILURES = 48, 8
@@ -100,6 +123,15 @@ CHECKPOINT_KEYS = (
     "archive_n", "failures", "failure_n", "failure_digests", "key",
     "generations_run", "pop_delays", "pop_faults", "gen", "best_fitness",
     "best_delays", "best_faults", "surrogate_params")
+MCTS_CHECKPOINT_KEYS = CHECKPOINT_KEYS[:11] + (
+    "best_fitness", "best_delays", "best_faults")
+# phases 6-8: what each path's requests add to the policy's defaults
+EXTRA_PATHS = (
+    ("sidecar_faults", {"max_fault": 0.1}, {}),
+    ("sidecar_order", {"release_mode": "reorder"},
+     {"release_mode": "reorder"}),
+    ("sidecar_mcts", {"search_backend": "mcts"}, {}),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -269,8 +301,8 @@ def real_feature_rows(search, refs):
     from namazu_tpu_torch.ops import schedule as sched
 
     traces, pairs, archive, failures = search._device_inputs(refs)
-    feats = sched._genome_features(search._state.pop.delays, traces, pairs,
-                                   search.cfg.weights.tau)
+    feats, _ = sched._genome_features(search._state.pop.delays, traces,
+                                      pairs, search.cfg.weights.tau)
     return (feats.reshape(-1, feats.shape[-1]).contiguous(), archive,
             failures, search._archive_n, search._failure_n)
 
@@ -411,6 +443,10 @@ def check_pair_kernel(device, real=None, timed=True) -> dict:
                  ((300, 100, 7, 128), 50, 1),
                  ((16384 + 37, 512, 1, 100), None, None),
                  ((4096 + 5, 200, 9, 512), 150, 9),
+                 (ROLLOUT_SHAPES[0], None, None),
+                 (ROLLOUT_SHAPES[0], 300, 17),
+                 (ROLLOUT_SHAPES[1], None, None),
+                 (ROLLOUT_SHAPES[1], 300, 17),
              ])]
     for i, exact in enumerate((True, False)):
         what = "exact archive, near failures" if exact else \
@@ -450,10 +486,29 @@ def check_pair_kernel(device, real=None, timed=True) -> dict:
                      torch.cdist(feats, failures).square().amin(1)),
             bounds_ms(N, A + F, Kc, 2)))
         report("pair kernel", MAIN_SHAPE, out, max_err)
+        out["at_rollout_shapes"] = {}
+        for shape in ROLLOUT_SHAPES:
+            N, A, F, Kc = shape
+            f, a, fl = pair_inputs(N, A, F, Kc, 9, device)
+            t = timing(
+                lambda: pd.min_sq_distance_pair(f, a, fl),
+                lambda: pd.min_sq_distance_pair_reference(f, a, fl),
+                lambda: (torch.cdist(f, a).square().amin(1),
+                         torch.cdist(f, fl).square().amin(1)),
+                bounds_ms(N, A + F, Kc, 2))
+            out["at_rollout_shapes"][f"N={N}"] = t
+            report("pair kernel", shape, t, max_err)
     return out
 
 
 # -- phase 3: the main path -------------------------------------------------
+
+
+def cluster_flows(nodes: int = 13, n_flows: int = 150):
+    """The ``(src, dst)`` flows of the synthetic cluster, in a fixed
+    order."""
+    return [(s, d) for s in range(nodes) for d in range(nodes)
+            if s != d][:n_flows]
 
 
 def synthetic_stream(rng, n_events: int, n_flows: int = 150,
@@ -461,9 +516,7 @@ def synthetic_stream(rng, n_events: int, n_flows: int = 150,
     """A seeded stream of packet-like events over ``n_flows`` flows of a
     13-node cluster, Zipf-skewed, with ~1 ms inter-arrivals; ``jitter``
     adds per-event release noise (an executed run's realized view)."""
-    nodes = 13
-    flows = [(s, d) for s in range(nodes) for d in range(nodes)
-             if s != d][:n_flows]
+    flows = cluster_flows(n_flows=n_flows)
     weights = 1.0 / (1.0 + rng.permutation(len(flows)))
     weights /= weights.sum()
     idx = rng.choice(len(flows), size=n_events, p=weights)
@@ -501,21 +554,30 @@ def build_search(device, population=POPULATION, events=EVENTS,
     return search, refs
 
 
-def rescore_on_cpu(search, refs, delays):
+def rescore_on_cpu(search, refs, delays, faults=None):
+    """The fitness of one table (and, where the search scores faults, its
+    fault half) re-scored on the CPU by the plain versions, with the
+    search's pairs, archives, weights and coin."""
     import numpy as np
     import torch
 
     from namazu_tpu_torch.ops import schedule as sched
     from namazu_tpu_torch.ops import trace_encoding as te
 
-    h, _, a, m, _ = te.stack_traces(refs)
+    h, _, a, m, fb = te.stack_traces(refs)
+    coin = None if search._coin is None else torch.from_numpy(search._coin)
     traces = sched.TraceArrays(torch.from_numpy(h).long(),
-                               torch.from_numpy(a), torch.from_numpy(m))
+                               torch.from_numpy(a), torch.from_numpy(m),
+                               None if coin is None else
+                               torch.from_numpy(fb))
+    nov = getattr(search, "novelty_scale", None)
     fit, _ = sched.score_population_multi(
-        torch.from_numpy(np.asarray(delays)[None]), traces,
+        torch.from_numpy(np.asarray(delays, np.float32)[None]), traces,
         torch.from_numpy(search.pairs), torch.from_numpy(search.archive),
         torch.from_numpy(search.failures), search.cfg.weights,
-        novelty_scale=search.novelty_scale())
+        faults=None if coin is None else torch.from_numpy(
+            np.asarray(faults, np.float32)[None]),
+        coin=coin, novelty_scale=None if nov is None else nov())
     return float(fit[0])
 
 
@@ -565,56 +627,115 @@ def drive_main_path(device, generations=GENERATIONS, built=None, **sizes):
     return launches, search, refs
 
 
-def profile_generation(search, refs) -> dict:
-    """Where a generation's time goes at the main path's sizes: each
-    layer timed alone by CUDA events, and one 16-generation chunk traced
-    by torch.profiler for the device's busy share."""
+def device_profile(fn, steps: int) -> dict:
+    """``fn`` traced once by torch.profiler after one warm call: wall and
+    device ms per step, the device's busy share, launches per step and
+    the six costliest kernels."""
     import torch
 
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "wall_ms": wall_ms / steps,
+        "device_ms": busy_ms / steps,
+        "device_busy_share": busy_ms / wall_ms if busy_ms else None,
+        "launches": sum(e.count for e in kernels) / steps,
+        "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                           / steps for e in top},
+    }
+
+
+def profile_generation(search, refs) -> dict:
+    """Where a generation's time goes at the search's sizes and settings
+    (its weights, and its fault half where it scores one): each layer
+    timed alone by CUDA events, and one fused_chunk of generations traced
+    by torch.profiler for the device's busy share."""
     from namazu_tpu_torch.models.ga import ga_generation
     from namazu_tpu_torch.ops import schedule as sched
     from namazu_tpu_torch.ops.pair_distance import min_sq_distance_pair
     from namazu_tpu_torch.parallel.islands import fused_step, generator_for
 
     traces, pairs, archive, failures = search._device_inputs(refs)
-    cfg, st = search.cfg, search._state
-    feats = sched._genome_features(st.pop.delays, traces, pairs,
-                                   cfg.weights.tau)
-    flat = feats.reshape(-1, feats.shape[-1])
+    cfg, st, w, coin = (search.cfg, search._state, search.cfg.weights,
+                        search._dev_coin)
+    faults = None if coin is None else st.pop.faults
+
+    def features():
+        return sched._genome_features(
+            st.pop.delays, traces, pairs, w.tau, w.order_mode, w.order_gap,
+            w.order_window, faults=faults, coin=coin)
+
+    flat = features()[0].reshape(-1, cfg.K)
     fitness, _ = sched.score_population_multi(
-        st.pop.delays, traces, pairs, archive, failures, cfg.weights)
+        st.pop.delays, traces, pairs, archive, failures, w, faults=faults,
+        coin=coin)
     gen = generator_for(search._seed, st.gen, search.device)
     out = {
-        "feature_step_ms": cuda_time_ms(lambda: sched._genome_features(
-            st.pop.delays, traces, pairs, cfg.weights.tau), iters=20),
+        "feature_step_ms": cuda_time_ms(features, iters=20),
         "pair_kernel_ms": cuda_time_ms(
             lambda: min_sq_distance_pair(flat, archive, failures), iters=20),
         "ga_ms": cuda_time_ms(lambda: ga_generation(
             gen, st.pop, fitness, cfg.ga), iters=20),
     }
     chunk = cfg.fused_chunk
-    step = (lambda: fused_step(search._state, chunk, search._seed, traces,
-                               pairs, archive, failures, cfg.ga,
-                               cfg.weights))
-    step()
+    prof = device_profile(
+        lambda: fused_step(search._state, chunk, search._seed, traces,
+                           pairs, archive, failures, cfg.ga, w, coin=coin),
+        chunk)
+    out["generation_wall_ms"] = prof["wall_ms"]
+    out["generation_device_ms"] = prof["device_ms"]
+    out["device_busy_share"] = prof["device_busy_share"]
+    out["launches_per_generation"] = prof["launches"]
+    out["top_kernels_ms_per_generation"] = prof["top_kernels_ms"]
+    return out
+
+
+def profile_mcts(search, refs) -> dict:
+    """One search of the MCTS path at its own inputs, timed without the
+    profiler (simulations/s) and traced once by torch.profiler: device
+    time and launches a simulation, and the device's busy share (the rest
+    is the host: the tree, the launches and one sync a simulation)."""
+    import torch
+
+    from namazu_tpu_torch.models.mcts import mcts_search
+
+    traces, pairs, archive, failures = search._device_inputs(refs)
+    seeds = (None if search._seed_tables is None else
+             torch.from_numpy(search._seed_tables).to(search.device))
+    order = search._hint_order(refs)
+    sims = search.mcts_cfg.simulations
+
+    def run():
+        mcts_search(12345, traces, pairs, archive, failures, order,
+                    search.cfg.H, search.mcts_cfg, search.cfg.weights,
+                    coin=search._dev_coin, seeds=seeds)
+
+    run()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    out["generation_wall_ms"] = wall_ms / chunk
-    out["generation_device_ms"] = busy_ms / chunk
-    out["device_busy_share"] = busy_ms / wall_ms if busy_ms else None
-    out["launches_per_generation"] = sum(e.count for e in kernels) / chunk
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    out["top_kernels_ms_per_generation"] = {
-        e.key[:80]: e.self_device_time_total / 1e3 / chunk for e in top}
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = device_profile(run, sims)
+    out = {"search_s": wall, "simulations_per_s": sims / wall,
+           "rollouts_per_s": sims * search.mcts_cfg.rollouts / wall}
+    out.update({f"simulation_{k}" if k != "device_busy_share" else k: v
+                for k, v in prof.items()})
+    print(f"  one search alone: {wall:.4f} s, {sims / wall:.1f} "
+          f"simulations/s; under the profiler a simulation takes "
+          f"{prof['wall_ms']:.3f} ms of wall, {prof['device_ms']:.3f} ms "
+          f"of device time, {prof['launches']:.1f} launches")
     return out
 
 
@@ -622,16 +743,27 @@ def profile_generation(search, refs) -> dict:
 
 
 def write_history(root, runs=HISTORY_RUNS, failures=HISTORY_FAILURES,
-                  events=EVENTS, seed=1):
+                  events=EVENTS, seed=1, proc_every=0):
     """A naive storage directory as namazu_tpu's control plane writes it:
-    ``runs`` recorded runs of ``events`` packet actions each (the
-    reference's action dicts, arrival and release stamped), the last of
-    every ``runs // failures`` a failure whose releases carry up to 50 ms
-    of injected delay (successes up to 2 ms), results stamped with the
-    hint space. Returns the directory."""
+    ``runs`` recorded runs of ``events`` actions each (the reference's
+    action dicts, arrival and release stamped), the last of every ``runs
+    // failures`` a failure whose releases carry up to 50 ms of injected
+    delay (successes up to 2 ms), results stamped with the hint space.
+    Events are packets; with ``proc_every`` the events of every
+    ``proc_every``-th flow record as ProcSetEvent, a class that carries no
+    fault. Returns the directory."""
     import numpy as np
 
     from namazu_tpu_torch.ops.trace_encoding import HINT_SPACE
+
+    flow_of = {f"10.0.0.{s}->10.0.0.{d}": i
+               for i, (s, d) in enumerate(cluster_flows())}
+
+    def event_class(hint):
+        if proc_every and (flow_of[hint.split(":")[0]] % proc_every
+                           == proc_every - 1):
+            return "ProcSetEvent"
+        return "PacketEvent"
 
     rng = np.random.RandomState(seed)
     os.makedirs(root)
@@ -648,7 +780,7 @@ def write_history(root, runs=HISTORY_RUNS, failures=HISTORY_FAILURES,
             "type": "action", "class": "EventAcceptanceAction",
             "entity": hint.split("->")[0], "uuid": f"a{r:03d}-{i:05d}",
             "option": {}, "event_uuid": f"e{r:03d}-{i:05d}",
-            "event_class": "PacketEvent", "event_hint": hint,
+            "event_class": event_class(hint), "event_hint": hint,
             "event_arrived": t0 + arr, "triggered_time": t0 + float(rel),
         } for i, (hint, arr, rel) in enumerate(zip(hints, arrivals,
                                                    released))]
@@ -662,15 +794,15 @@ def write_history(root, runs=HISTORY_RUNS, failures=HISTORY_FAILURES,
     return root
 
 
-def newest_references(storage_dir, n=4, H=H):
+def newest_references(storage_dir, n=4, H=H, L=None):
     """The references ingest evolves against: the newest successful runs'
-    arrival views, newest first."""
+    arrival views, newest first (``L``: ingest's length cap)."""
     from namazu_tpu_torch.history import load_storage
     from namazu_tpu_torch.ops import trace_encoding as te
 
     st = load_storage(storage_dir)
     ok = [i for i in range(st.nr_stored_histories()) if st.is_successful(i)]
-    return [te.encode_trace(st.get_stored_history(i), H=H)
+    return [te.encode_trace(st.get_stored_history(i), L=L, H=H)
             for i in ok[::-1][:n]]
 
 
@@ -694,26 +826,31 @@ def time_host_ingest(storage_dir, H=H) -> None:
           f"{t2 - t1:.3f} s ({(t2 - t1) / events * 1e6:.2f} us/event)")
 
 
-def drive_sidecar_path(device, work_dir, generations=GENERATIONS,
-                       search_params=None, ingest_params=None, **history):
+def sidecar_requests(device, work_dir, storage, generations=GENERATIONS,
+                     search_params=None, ingest_params=None):
     """Two search requests over one keep-alive connection to the port's
-    sidecar on ``device``; returns the kernel launches they made."""
+    sidecar on ``device``, the launch counts set to 0 just before them
+    and read just after, and the checks every path shares: generations,
+    tables, checkpoint keys, B1's launches and a re-score on the CPU of
+    the returned table. Returns ``(launches, search, references, the
+    second response)``."""
     import numpy as np
 
     from namazu_tpu_torch import wire
     from namazu_tpu_torch.ops import pair_distance as pd
     from namazu_tpu_torch.sidecar import SidecarServer
 
-    t0 = time.perf_counter()
-    storage = write_history(os.path.join(work_dir, "history"), **history)
-    print(f"  wrote {storage}: {time.perf_counter() - t0:.2f} s")
+    sp = search_params or POLICY_SEARCH_PARAMS
+    ip = ingest_params or POLICY_INGEST_PARAMS
     ckpt = os.path.join(work_dir, "search.npz")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
     req = {
         "op": "search", "key": storage, "storage": storage,
-        "search_params": search_params or POLICY_SEARCH_PARAMS,
-        "ingest_params": ingest_params or POLICY_INGEST_PARAMS,
+        "search_params": sp, "ingest_params": ip,
         "generations": generations, "checkpoint": ckpt,
     }
+    mcts = sp.get("search_backend") == "mcts"
     server = SidecarServer("127.0.0.1", 0, device=device)
     server.start()
     try:
@@ -733,43 +870,159 @@ def drive_sidecar_path(device, work_dir, generations=GENERATIONS,
                       f"sidecar request {r} failed: {resp}")
                 resps.append(resp)
                 tm = server.service.timings[storage]
-                rate = (server.service.search_for(storage).population
-                        * generations / tm["run"])
+                search = server.service.search_for(storage)
+                if mcts:
+                    sims = search.mcts_cfg.simulations * max(
+                        1, generations // 64)
+                    rate = (f"{sims / tm['run']:.1f} simulations/s, "
+                            f"{sims * search.mcts_cfg.rollouts / tm['run']:.1f}"
+                            f" rollouts/s")
+                else:
+                    rate = (f"{search.population * generations / tm['run']:.1f}"
+                            f" schedules/s")
                 print(f"  request {r}: ingest {tm['ingest']:.3f} s, run "
-                      f"{tm['run']:.4f} s ({rate:.1f} schedules/s), "
+                      f"{tm['run']:.4f} s ({rate}), "
                       f"re-rank {tm['rerank'] * 1e3:.2f} ms, "
                       f"save {tm['save']:.3f} s, wall {wall:.3f} s; "
                       f"fitness {resp['fitness']:.6f}, generations_run "
                       f"{resp['generations_run']}")
         launches = {"min_sq_pair": pd.LAUNCHES, "min_sq": pd.SINGLE_LAUNCHES}
-        search = server.service.search_for(storage)
     finally:
         server.shutdown()
     r0, r1 = resps
-    check([r0["generations_run"], r1["generations_run"]]
-          == [generations, 2 * generations], "generations_run is wrong")
+    if mcts:
+        step = search.mcts_cfg.simulations * max(1, generations // 64)
+        keys = MCTS_CHECKPOINT_KEYS
+        expect = 2 * step
+    else:
+        step = generations
+        keys = CHECKPOINT_KEYS
+        check(search._surrogate is not None, "the surrogate did not train")
+        expect = 2 * generations + 2  # once a generation, once a re-rank
+    check([r0["generations_run"], r1["generations_run"]] == [step, 2 * step],
+          "generations_run is wrong")
     for r in resps:
         check(len(r["delays"]) == search.cfg.H
+              and len(r["faults"]) == search.cfg.H
               and math.isfinite(r["fitness"]), "bad table in a response")
-    check(search._surrogate is not None, "the surrogate did not train")
     with np.load(ckpt) as z:
-        missing = [k for k in CHECKPOINT_KEYS if k not in z.files]
+        missing = [k for k in keys if k not in z.files]
+        backend = str(z["backend"])
     check(not missing, f"checkpoint lacks {missing}")
+    check(backend == search.BACKEND, f"checkpoint backend {backend}")
     if device != "cpu":
-        check(launches["min_sq_pair"] == 2 * generations + 2,
+        check(launches["min_sq_pair"] == expect,
               f"pair kernel launched {launches['min_sq_pair']} times on "
-              f"the sidecar path, expected {2 * generations + 2}")
-    time_host_ingest(storage, search.cfg.H)
-    refs = newest_references(storage, H=search.cfg.H)
-    rescored = rescore_on_cpu(search, refs, np.asarray(r1["delays"],
-                                                       np.float32))
+              f"this path, expected {expect}")
+    cap = (ip.get("order_mode_max_l") if ip.get("release_mode") == "reorder"
+           else None)
+    refs = newest_references(storage, H=search.cfg.H, L=cap)
+    rescored = rescore_on_cpu(search, refs, r1["delays"], r1["faults"])
     check(math.isclose(rescored, r1["fitness"], rel_tol=RTOL,
                        abs_tol=ATOL),
           f"re-scored fitness {rescored} != returned {r1['fitness']}")
     print(f"  returned table re-scored on the CPU: {rescored:.6f} "
           f"(returned {r1['fitness']:.6f}; best seen "
           f"{search.best().fitness:.6f})")
+    return launches, search, refs, r1
+
+
+def drive_sidecar_path(device, work_dir, generations=GENERATIONS,
+                       search_params=None, ingest_params=None, **history):
+    """Phase 5: a history written under ``work_dir`` and two requests at
+    the policy's defaults; returns the kernel launches they made."""
+    t0 = time.perf_counter()
+    storage = write_history(os.path.join(work_dir, "history"), **history)
+    print(f"  wrote {storage}: {time.perf_counter() - t0:.2f} s")
+    launches, search, _, _ = sidecar_requests(
+        device, work_dir, storage, generations, search_params,
+        ingest_params)
+    time_host_ingest(storage, search.cfg.H)
     return launches
+
+
+def memory_and_time(fn, device) -> dict:
+    """``fn``'s time alone (CUDA events) and the peak device memory one
+    call allocates beyond what was live before it."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    fn()
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    return {"ms": cuda_time_ms(fn, iters=10, warmup=2),
+            "peak_bytes": int(peak)}
+
+
+def order_feature_steps(search, refs) -> dict:
+    """The order path's feature step timed alone, with its peak device
+    memory, at L = 2048 and at the path's own L (ingest's cap)."""
+    from namazu_tpu_torch.ops import schedule as sched
+
+    traces = search._device_inputs(refs)[0]
+    pairs, pop, w = search._dev_pairs, search._state.pop, search.cfg.weights
+
+    def step(tr):
+        return lambda: sched._genome_features(
+            pop.delays, tr, pairs, w.tau, w.order_mode, w.order_gap,
+            w.order_window)
+
+    short = sched.TraceArrays(*(x[:, :2048].contiguous()
+                                for x in traces[:3]))
+    out = {}
+    for tr in (short, traces):
+        L = tr.hint_ids.shape[-1]
+        v = out[f"order_feature_step_L{L}"] = memory_and_time(
+            step(tr), search.device)
+        print(f"  order-mode feature step at {tuple(pop.delays.shape)} x "
+              f"{len(refs)} traces x L={L}: {v['ms']:.3f} ms, peak "
+              f"{v['peak_bytes'] / 2**30:.3f} GiB beyond what was live")
+    return out
+
+
+def drive_extra_paths(device, work_dir, generations=GENERATIONS,
+                      search_params=None, ingest_params=None, **history):
+    """Phases 6-8 over one history whose every fourth flow records as
+    ProcSetEvent: the fault path, the order path and the MCTS path, each
+    two requests with its own launch counts. Returns ``({path:
+    launches}, {path: numbers})``."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    storage = write_history(os.path.join(work_dir, "history-mixed"),
+                            proc_every=4, **history)
+    print(f"  wrote {storage} (every fourth flow ProcSetEvent): "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches, numbers = {}, {}
+    for name, sp_extra, ip_extra in EXTRA_PATHS:
+        print(f"phase: {name}")
+        sp = dict(search_params or POLICY_SEARCH_PARAMS, **sp_extra)
+        ip = dict(ingest_params or POLICY_INGEST_PARAMS, **ip_extra)
+        launches[name], search, refs, resp = sidecar_requests(
+            device, work_dir, storage, generations, sp, ip)
+        faults = np.asarray(resp["faults"], np.float32)
+        if name == "sidecar_faults":
+            flt = np.concatenate([r.faultable[r.mask] for r in refs])
+            check(0.0 < flt.mean() < 1.0, "the faultable flag is uniform")
+            check(search._coin is not None, "no fault coin")
+            check(faults.min() >= 0.0 and faults.max() <= np.float32(
+                sp["max_fault"]) and faults.any(),
+                f"fault table outside [0, {sp['max_fault']}] or all zero")
+            print(f"  returned fault table: {int((faults > 0).sum())} of "
+                  f"{faults.size} buckets > 0, max {faults.max():.4f}; "
+                  f"faultable share of reference events {flt.mean():.3f}")
+        else:
+            check(not faults.any(), "faults returned without a fault half")
+        if device != "cpu" and name == "sidecar_mcts":
+            numbers[name] = profile_mcts(search, refs)
+        elif device != "cpu":
+            numbers[name] = {"generation": profile_generation(search, refs)}
+            if name == "sidecar_order":
+                numbers[name].update(order_feature_steps(search, refs))
+        del search, refs
+    return launches, numbers
 
 
 def main(argv=None) -> int:
@@ -840,14 +1093,19 @@ def main(argv=None) -> int:
     os.makedirs(work)
     try:
         sidecar = drive_sidecar_path("cuda", work)
+        torch.cuda.synchronize()
+        print("phase: fault, order and MCTS paths (one history)")
+        extra, numbers = drive_extra_paths("cuda", work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.synchronize()
+    print(json.dumps({"paths": numbers}))
 
     for k in (pair, single):
         k["launches"] = sidecar[k["name"]]
-        k["launches_by_path"] = {"sidecar": sidecar[k["name"]],
-                                 "fused_search": fused[k["name"]]}
+        k["launches_by_path"] = dict(
+            {"fused_search": fused[k["name"]], "sidecar": sidecar[k["name"]]},
+            **{path: n[k["name"]] for path, n in extra.items()})
     print(card)
     print(json.dumps({"kernels": [pair, single]}))
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,14 @@ from namazu_tpu_torch.models.ga import Population
 from namazu_tpu_torch.parallel.islands import IslandState
 
 
+class Archives(NamedTuple):
+    pairs: Optional[np.ndarray]  # int32[K, 2]; None in old checkpoints
+    archive: np.ndarray  # f32[A, K]
+    archive_n: int
+    failures: np.ndarray  # f32[F, K]
+    failure_n: int
+
+
 class SearchArrays(NamedTuple):
     state: IslandState
     pairs: Optional[np.ndarray]  # int32[K, 2]; None in old checkpoints
@@ -39,31 +47,41 @@ class SearchArrays(NamedTuple):
     failure_n: int
 
 
-def state_from_jax(arrays: Mapping[str, np.ndarray],
-                   device: DeviceLike = "cuda") -> SearchArrays:
-    """The reference search's numpy arrays -> the port's state on
-    ``device``."""
-    dev = resolve_device(device)
-
-    def f32(name):
-        return torch.tensor(np.asarray(arrays[name], np.float32), device=dev)
-
-    state = IslandState(
-        pop=Population(f32("pop_delays"), f32("pop_faults")),
-        gen=int(arrays["gen"]),
-        best_fitness=f32("best_fitness").reshape(()),
-        best_delays=f32("best_delays"),
-        best_faults=f32("best_faults"),
-    )
+def archives_from_jax(arrays: Mapping[str, np.ndarray]) -> Archives:
+    """The pairs and archives of a checkpoint of either backend."""
     pairs = arrays.get("pairs")
-    return SearchArrays(
-        state=state,
+    return Archives(
         pairs=None if pairs is None else np.asarray(pairs, np.int32),
         archive=np.array(arrays["archive"], np.float32),
         archive_n=int(arrays["archive_n"]),
         failures=np.array(arrays["failures"], np.float32),
         failure_n=int(arrays["failure_n"]),
     )
+
+
+def island_state_from_jax(arrays: Mapping[str, np.ndarray],
+                          device: DeviceLike = "cuda") -> IslandState:
+    """The GA state of a reference checkpoint on ``device``."""
+    dev = resolve_device(device)
+
+    def f32(name):
+        return torch.tensor(np.asarray(arrays[name], np.float32), device=dev)
+
+    return IslandState(
+        pop=Population(f32("pop_delays"), f32("pop_faults")),
+        gen=int(arrays["gen"]),
+        best_fitness=f32("best_fitness").reshape(()),
+        best_delays=f32("best_delays"),
+        best_faults=f32("best_faults"),
+    )
+
+
+def state_from_jax(arrays: Mapping[str, np.ndarray],
+                   device: DeviceLike = "cuda") -> SearchArrays:
+    """The reference search's numpy arrays -> the port's state on
+    ``device``."""
+    return SearchArrays(island_state_from_jax(arrays, device),
+                        *archives_from_jax(arrays))
 
 
 def state_to_jax(state: IslandState) -> dict:

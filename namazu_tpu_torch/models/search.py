@@ -16,9 +16,14 @@ with failures' delay tables (``seed_population``) and fills the archives.
 Checkpoints keep the reference's ``.npz`` keys, ``key`` included (the
 uint32[2] that ``jax.random.PRNGKey(seed)`` holds) and the surrogate's
 weights as the reference's flat ``surrogate_params``, so a checkpoint
-written by either package loads into the other. Causality guidance, the
-MCTS backend, order mode and fault search are later slices of the port
-and raise ``NotImplementedError``.
+written by either package loads into the other.
+
+``ScheduleSearch`` scores the fault half of the genome when
+``cfg.ga.max_fault > 0`` (with the per-bucket coin the policy replays
+with) and order mode when ``cfg.weights.order_mode``. ``MCTSSearch`` is
+the MCTS backend (``models/mcts.py``) behind the same driver API.
+Causality guidance is a later slice of the port and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from namazu_tpu_torch import convert
 from namazu_tpu_torch.device import DeviceLike, resolve_device
 from namazu_tpu_torch.models.ga import GAConfig
+from namazu_tpu_torch.models.mcts import MCTSConfig, mcts_search
 from namazu_tpu_torch.models.surrogate import RewardSurrogate
 from namazu_tpu_torch.ops import trace_encoding as te
 from namazu_tpu_torch.ops.schedule import (
@@ -44,6 +50,7 @@ from namazu_tpu_torch.ops.schedule import (
 )
 from namazu_tpu_torch.parallel.islands import (
     fused_step,
+    generation_seed,
     init_island_state,
     island_step,
 )
@@ -144,7 +151,7 @@ class _ResidentTraces:
     evicted oldest-first when the buffer is full; a trace longer than the
     rows forces a rebuild."""
 
-    NAMES = ("hint", "arr", "mask")
+    NAMES = ("hint", "arr", "mask", "flt")
 
     def __init__(self, device: torch.device, capacity: int = 16):
         self.device = device
@@ -169,7 +176,8 @@ class _ResidentTraces:
         rows = te.pad_trace_row(enc, self.L)
         return {"hint": torch.from_numpy(rows["hint"].astype(np.int64)),
                 "arr": torch.from_numpy(rows["arr"]),
-                "mask": torch.from_numpy(rows["mask"])}
+                "mask": torch.from_numpy(rows["mask"]),
+                "flt": torch.from_numpy(rows["flt"])}
 
     def _rebuild(self, encs, keys, Lmax: int) -> None:
         self.capacity = max(self.capacity, len(encs))
@@ -178,6 +186,7 @@ class _ResidentTraces:
             "hint": torch.zeros((self.capacity, self.L), dtype=torch.int64),
             "arr": torch.zeros((self.capacity, self.L), dtype=torch.float32),
             "mask": torch.zeros((self.capacity, self.L), dtype=torch.bool),
+            "flt": torch.zeros((self.capacity, self.L), dtype=torch.bool),
         }
         self.slots, self.order = {}, []
         for k, e in zip(keys, encs):
@@ -204,7 +213,9 @@ class _ResidentTraces:
         self.order.append(key)
         self.appends += 1
 
-    def view(self, encs) -> TraceArrays:
+    def view(self, encs, faultable: bool = False) -> TraceArrays:
+        """The ``[T, Lmax]`` arrays of ``encs``; the faultable row only
+        with ``faultable`` (it is read only when faults are scored)."""
         keys = [self.key_of(e) for e in encs]
         Lmax = max(e.hint_ids.shape[0] for e in encs)
         live = set(keys)
@@ -216,9 +227,9 @@ class _ResidentTraces:
                 if k not in self.slots:
                     self._append(k, e, live)
         idx = torch.tensor([self.slots[k] for k in keys], device=self.device)
-        hint, arr, mask = (self.bufs[n].index_select(0, idx)[:, :Lmax]
-                           .contiguous() for n in self.NAMES)
-        return TraceArrays(hint, arr, mask)
+        names = self.NAMES if faultable else self.NAMES[:3]
+        return TraceArrays(*(self.bufs[n].index_select(0, idx)[:, :Lmax]
+                             .contiguous() for n in names))
 
 
 def _unsupported(what: str) -> NotImplementedError:
@@ -226,26 +237,19 @@ def _unsupported(what: str) -> NotImplementedError:
         f"namazu_tpu_torch: {what} is not ported yet; use namazu_tpu")
 
 
-class ScheduleSearch:
-    """GA search on one card. ``device`` defaults to ``"cuda"``; without a
-    card, pass ``device="cpu"`` (the scorer then takes the pair-distance
-    kernel's plain version)."""
+class SearchBase:
+    """What every search backend shares: the precedence pairs, the
+    novelty/failure archives (host rings with device copies written in
+    place), the fault coin, the device-resident reference traces and the
+    backend-tagged ``.npz`` checkpoint. ``device`` defaults to
+    ``"cuda"``; without a card, pass ``device="cpu"`` (the scorer then
+    takes the pair-distance kernel's plain version)."""
 
-    BACKEND = "ga"
+    BACKEND = "base"
 
-    #: labeled runs needed in EACH outcome class before the surrogate may
-    #: override the fitness argmax
-    MIN_CLASS_EXAMPLES = 3
-
-    def __init__(self, cfg: SearchConfig = SearchConfig(),
-                 device: DeviceLike = "cuda"):
-        if cfg.weights.order_mode:
-            raise _unsupported("order mode")
-        if cfg.ga.max_fault > 0:
-            raise _unsupported("fault search (max_fault > 0)")
+    def __init__(self, cfg: SearchConfig, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.population = cfg.population
         self.pairs = te.sample_pairs(cfg.K, cfg.H, cfg.seed)
         # neutral (0.5) features = "no information"; rings overwrite oldest
         self.archive = np.full((cfg.archive_size, cfg.K), 0.5, np.float32)
@@ -260,11 +264,10 @@ class ScheduleSearch:
         self.generations_run = 0
         self.last_run_seconds = 0.0  # the evolve section of run()
         self.last_rerank_seconds = 0.0  # surrogate train + re-rank
-        self.last_fit_curve: List[float] = []
-        self._surrogate: Optional[RewardSurrogate] = None
         self._key = key_data(cfg.seed)
-        self._state = init_island_state(cfg.seed + 1, self.population,
-                                        cfg.H, cfg.ga, self.device)
+        # the fault half is scored only when faults can be non-zero
+        self._coin = (te.fault_coin(cfg.seed, cfg.H)
+                      if cfg.ga.max_fault > 0 else None)
         self._traces = _ResidentTraces(self.device)
         self._upload_archives()
 
@@ -275,6 +278,8 @@ class ScheduleSearch:
             self.pairs.astype(np.int64)).to(self.device)
         self._dev_archive = torch.tensor(self.archive, device=self.device)
         self._dev_failures = torch.tensor(self.failures, device=self.device)
+        self._dev_coin = (None if self._coin is None else
+                          torch.from_numpy(self._coin).to(self.device))
 
     def enable_guidance(self, *args, **kwargs):
         raise _unsupported("causality guidance")
@@ -313,24 +318,7 @@ class ScheduleSearch:
 
     def _reset_best(self) -> None:
         """Invalidate the best-so-far record (the feature space changed)."""
-        self._state = self._state._replace(best_fitness=torch.full(
-            (), float("-inf"), device=self.device))
-
-    def seed_population(self, delay_tables) -> None:
-        """Write imitation genomes (recorded failures' delay tables,
-        clipped to ``max_delay``) into the population before evolving,
-        one every ``P // n`` rows. The device population is written in
-        place, not reallocated."""
-        if len(delay_tables) == 0:
-            return
-        seeds = np.clip(
-            np.stack([np.asarray(t, np.float32) for t in delay_tables]),
-            0.0, self.cfg.ga.max_delay)
-        n = min(seeds.shape[0], self.population)
-        stride = max(1, self.population // n)
-        idx = [min(i * stride, self.population - 1) for i in range(n)]
-        self._state.pop.delays[torch.tensor(idx, device=self.device)] = \
-            torch.from_numpy(seeds[:n]).to(self.device)
+        raise NotImplementedError
 
     def add_executed_trace(self, encoded: te.EncodedTrace,
                            reproduced: bool = False,
@@ -376,6 +364,133 @@ class ScheduleSearch:
         known = np.isfinite(labels)
         return feats[known], labels[known]
 
+    # -- search ------------------------------------------------------------
+
+    @property
+    def _seed(self) -> int:
+        return seed_of_key(self._key)
+
+    def _device_inputs(self, encoded):
+        """``(traces, pairs, archive, failures)`` on the device, from one
+        encoded trace or a list of them; the traces carry the faultable
+        flag only when the fault half is scored."""
+        encs = encoded if isinstance(encoded, (list, tuple)) else [encoded]
+        return (self._traces.view(encs, faultable=self._coin is not None),
+                self._dev_pairs, self._dev_archive, self._dev_failures)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- persistence -------------------------------------------------------
+
+    def _state_dict(self) -> dict:
+        raise NotImplementedError
+
+    def _restore_state(self, arrays: dict) -> None:
+        raise NotImplementedError
+
+    def save(self, path: str) -> None:
+        """Write the reference's checkpoint keys (``.npz``)."""
+        flat = {
+            "backend": np.asarray(self.BACKEND),
+            "hint_space": np.asarray(te.HINT_SPACE),
+            "pairs": self.pairs,
+            "archive": self.archive,
+            "archive_labels": self.archive_labels,
+            "archive_n": np.asarray(self._archive_n),
+            "failures": self.failures,
+            "failure_n": np.asarray(self._failure_n),
+            "failure_digests": np.asarray(self._failure_digests),
+            "key": self._key,
+            "generations_run": np.asarray(self.generations_run),
+        }
+        flat.update(self._state_dict())
+        tmp = path + ".tmp.npz"
+        np.savez(tmp, **flat)
+        os.replace(tmp, path)
+
+    def load(self, path: str) -> None:
+        """Restore a checkpoint written by this package or by the
+        reference's search of the same backend; a checkpoint of the other
+        backend raises ``ValueError``."""
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in z.files}
+        saved = str(arrays["backend"]) if "backend" in arrays else "ga"
+        if saved != self.BACKEND:
+            raise ValueError(f"checkpoint {path} was written by the "
+                             f"{saved!r} backend, not {self.BACKEND!r}")
+        if ("best_delays" in arrays
+                and arrays["best_delays"].shape != (self.cfg.H,)):
+            raise ValueError(
+                f"checkpoint {path} has H={arrays['best_delays'].shape[0]} "
+                f"delay buckets, config has H={self.cfg.H}")
+        space = te.checkpoint_hint_space(arrays)
+        if space != te.HINT_SPACE:
+            raise ValueError(
+                f"checkpoint {path} was built in hint space {space!r}; "
+                f"this build hashes {te.HINT_SPACE!r}")
+        got = convert.archives_from_jax(arrays)
+        if got.pairs is not None:
+            self.pairs = got.pairs
+        self.archive, self._archive_n = got.archive, got.archive_n
+        self.failures, self._failure_n = got.failures, got.failure_n
+        self.archive_labels = (
+            np.array(arrays["archive_labels"], np.float32)
+            if "archive_labels" in arrays
+            # outcomes of the archived runs unknown: NaN marks them
+            else np.full((self.cfg.archive_size,), np.nan, np.float32))
+        if "failure_digests" in arrays:
+            self._failure_digests = [str(d) for d in
+                                     arrays["failure_digests"]]
+        else:
+            self._failure_digests = [""] * self.cfg.failure_size
+        self._failure_digest_set = {d for d in self._failure_digests if d}
+        self._key = np.asarray(arrays["key"], np.uint32).reshape(2)
+        self.generations_run = int(arrays["generations_run"])
+        self._restore_state(arrays)
+        self._upload_archives()
+
+
+class ScheduleSearch(SearchBase):
+    """The GA backend on one card: one island of ``cfg.population``
+    genomes."""
+
+    BACKEND = "ga"
+
+    #: labeled runs needed in EACH outcome class before the surrogate may
+    #: override the fitness argmax
+    MIN_CLASS_EXAMPLES = 3
+
+    def __init__(self, cfg: SearchConfig = SearchConfig(),
+                 device: DeviceLike = "cuda"):
+        super().__init__(cfg, device)
+        self.population = cfg.population
+        self.last_fit_curve: List[float] = []
+        self._surrogate: Optional[RewardSurrogate] = None
+        self._state = init_island_state(cfg.seed + 1, self.population,
+                                        cfg.H, cfg.ga, self.device)
+
+    def _reset_best(self) -> None:
+        self._state = self._state._replace(best_fitness=torch.full(
+            (), float("-inf"), device=self.device))
+
+    def seed_population(self, delay_tables) -> None:
+        """Write imitation genomes (recorded failures' delay tables,
+        clipped to ``max_delay``) into the population before evolving,
+        one every ``P // n`` rows. The device population is written in
+        place, not reallocated."""
+        if len(delay_tables) == 0:
+            return
+        seeds = np.clip(
+            np.stack([np.asarray(t, np.float32) for t in delay_tables]),
+            0.0, self.cfg.ga.max_delay)
+        n = min(seeds.shape[0], self.population)
+        stride = max(1, self.population // n)
+        idx = [min(i * stride, self.population - 1) for i in range(n)]
+        self._state.pop.delays[torch.tensor(idx, device=self.device)] = \
+            torch.from_numpy(seeds[:n]).to(self.device)
+
     def novelty_scale(self) -> float:
         """Annealed multiplier on ``weights.novelty``: 1.0 while the
         failure archive holds fewer than ``min_failure_signatures``
@@ -389,19 +504,6 @@ class ScheduleSearch:
         return max(self.cfg.novelty_floor, ms / n)
 
     # -- search ------------------------------------------------------------
-
-    @property
-    def _seed(self) -> int:
-        return seed_of_key(self._key)
-
-    def _device_inputs(self, encoded):
-        encs = encoded if isinstance(encoded, (list, tuple)) else [encoded]
-        return (self._traces.view(encs), self._dev_pairs,
-                self._dev_archive, self._dev_failures)
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def run(self, encoded, generations: int = 50) -> BestSchedule:
         """Evolve against one or more reference traces for ``generations``
@@ -434,7 +536,8 @@ class ScheduleSearch:
         for _ in range(generations):
             self._state, fit = island_step(
                 self._state, self._seed, traces, pairs, archive, failures,
-                self.cfg.ga, self.cfg.weights, novelty_scale=nov_scale)
+                self.cfg.ga, self.cfg.weights, novelty_scale=nov_scale,
+                coin=self._dev_coin)
             fits.append(fit)
         return [float(v) for v in torch.stack(fits).tolist()] if fits else []
 
@@ -453,7 +556,7 @@ class ScheduleSearch:
             self._state, fit_hist = fused_step(
                 self._state, g, self._seed, traces, pairs, archive,
                 failures, self.cfg.ga, self.cfg.weights,
-                novelty_scale=nov_scale)
+                novelty_scale=nov_scale, coin=self._dev_coin)
             done += g
             if pending is not None:
                 self._drain(pending, curve)
@@ -508,11 +611,13 @@ class ScheduleSearch:
     def _rerank_candidates(self, traces, pairs, archive, failures,
                            nov_scale=None):
         """``(top-k row indices, fitness [P], feats [P, T, K])`` of the
-        current population, re-scored once."""
+        current population, re-scored once, its fault half included."""
         k = min(self.cfg.surrogate_topk, self.population)
+        pop = self._state.pop
         fitness, feats = score_population_multi(
-            self._state.pop.delays, traces, pairs, archive, failures,
-            self.cfg.weights, novelty_scale=nov_scale)
+            pop.delays, traces, pairs, archive, failures, self.cfg.weights,
+            faults=None if self._dev_coin is None else pop.faults,
+            coin=self._dev_coin, novelty_scale=nov_scale)
         return torch.argsort(-fitness, stable=True)[:k], fitness, feats
 
     def _surrogate_pick(self, traces, pairs, archive, failures,
@@ -545,73 +650,20 @@ class ScheduleSearch:
 
     # -- persistence -------------------------------------------------------
 
-    def save(self, path: str) -> None:
-        """Write the reference's checkpoint keys (``.npz``)."""
-        flat = {
-            "backend": np.asarray(self.BACKEND),
-            "hint_space": np.asarray(te.HINT_SPACE),
-            "pairs": self.pairs,
-            "archive": self.archive,
-            "archive_labels": self.archive_labels,
-            "archive_n": np.asarray(self._archive_n),
-            "failures": self.failures,
-            "failure_n": np.asarray(self._failure_n),
-            "failure_digests": np.asarray(self._failure_digests),
-            "key": self._key,
-            "generations_run": np.asarray(self.generations_run),
-        }
-        flat.update(convert.state_to_jax(self._state))
+    def _state_dict(self) -> dict:
+        flat = convert.state_to_jax(self._state)
         if self._surrogate is not None:
             flat["surrogate_params"] = convert.surrogate_flat_from_state(
                 self._surrogate.state_dict())
-        tmp = path + ".tmp.npz"
-        np.savez(tmp, **flat)
-        os.replace(tmp, path)
+        return flat
 
-    def load(self, path: str) -> None:
-        """Restore a checkpoint written by this package or by the
-        reference's ``ScheduleSearch``."""
-        with np.load(path) as z:
-            arrays = {k: z[k] for k in z.files}
-        saved = str(arrays["backend"]) if "backend" in arrays else "ga"
-        if saved != self.BACKEND:
-            raise ValueError(f"checkpoint {path} was written by the "
-                             f"{saved!r} backend, not {self.BACKEND!r}")
-        if ("best_delays" in arrays
-                and arrays["best_delays"].shape != (self.cfg.H,)):
-            raise ValueError(
-                f"checkpoint {path} has H={arrays['best_delays'].shape[0]} "
-                f"delay buckets, config has H={self.cfg.H}")
-        space = te.checkpoint_hint_space(arrays)
-        if space != te.HINT_SPACE:
-            raise ValueError(
-                f"checkpoint {path} was built in hint space {space!r}; "
-                f"this build hashes {te.HINT_SPACE!r}")
-        got = convert.state_from_jax(arrays, self.device)
-        if got.pairs is not None:
-            self.pairs = got.pairs
-        self.archive, self._archive_n = got.archive, got.archive_n
-        self.failures, self._failure_n = got.failures, got.failure_n
-        self.archive_labels = (
-            np.array(arrays["archive_labels"], np.float32)
-            if "archive_labels" in arrays
-            # outcomes of the archived runs unknown: NaN marks them
-            else np.full((self.cfg.archive_size,), np.nan, np.float32))
-        if "failure_digests" in arrays:
-            self._failure_digests = [str(d) for d in
-                                     arrays["failure_digests"]]
-        else:
-            self._failure_digests = [""] * self.cfg.failure_size
-        self._failure_digest_set = {d for d in self._failure_digests if d}
-        self._key = np.asarray(arrays["key"], np.uint32).reshape(2)
-        self.generations_run = int(arrays["generations_run"])
-        state = got.state
+    def _restore_state(self, arrays: dict) -> None:
+        state = convert.island_state_from_jax(arrays, self.device)
         if tuple(state.pop.delays.shape) != (self.population, self.cfg.H):
             # a population/genome-width mismatch keeps the fresh
             # population; archives, best tables and the key restore
             state = state._replace(pop=self._state.pop)
         self._state = state
-        self._upload_archives()
         if "surrogate_params" in arrays:
             # the optimizer restarts, as in the reference; weights of
             # another feature width retrain from the labeled archive
@@ -626,10 +678,109 @@ class ScheduleSearch:
                 self._surrogate = None
 
 
-class MCTSSearch:
-    """The MCTS backend of the reference; not ported yet."""
+class MCTSSearch(SearchBase):
+    """The MCTS backend (``models/mcts.py``) behind the GA's driver API,
+    so the ``tpu_search`` policy's ``search_backend = "mcts"`` is served
+    by the same sidecar. One tree per search on one card."""
 
     BACKEND = "mcts"
 
-    def __init__(self, *args, **kwargs):
-        raise _unsupported("the MCTS backend")
+    #: seed tables are tiled to this fixed row count, as in the reference
+    SEED_ROWS = 16
+
+    def __init__(self, cfg: SearchConfig = SearchConfig(),
+                 mcts_cfg: Optional[MCTSConfig] = None,
+                 device: DeviceLike = "cuda"):
+        super().__init__(cfg, device)
+        self.mcts_cfg = mcts_cfg if mcts_cfg is not None else MCTSConfig(
+            max_delay=cfg.ga.max_delay, max_fault=cfg.ga.max_fault)
+        if self.mcts_cfg.max_fault > 0 and self._coin is None:
+            # an explicit mcts_cfg can enable fault search even when
+            # cfg.ga does not: the rollouts still need the coin
+            self._coin = te.fault_coin(cfg.seed, cfg.H)
+            self._upload_archives()
+        if self.mcts_cfg.tree_depth > cfg.H:
+            # the tree cannot decide more buckets than the genome has
+            self.mcts_cfg = self.mcts_cfg._replace(tree_depth=cfg.H)
+        self._best_fitness = float("-inf")
+        self._best_delays = np.zeros((cfg.H,), np.float32)
+        self._best_faults = np.zeros((cfg.H,), np.float32)
+        self._seed_tables: Optional[np.ndarray] = None  # f32[S, H]
+
+    def _reset_best(self) -> None:
+        self._best_fitness = float("-inf")
+
+    def seed_population(self, delay_tables) -> None:
+        """Demonstration tables steer the rollouts: up to half of each
+        rollout batch completes the unpinned buckets from a
+        noise-perturbed seed (the MCTS analogue of the GA's population
+        seeding, from the same recorded failures)."""
+        if len(delay_tables) == 0:
+            return
+        raw = np.clip(
+            np.stack([np.asarray(t, np.float32) for t in delay_tables]),
+            0.0, self.mcts_cfg.max_delay)
+        reps = -(-self.SEED_ROWS // raw.shape[0])
+        self._seed_tables = np.tile(raw, (reps, 1))[: self.SEED_ROWS]
+
+    def _hint_order(self, encs) -> np.ndarray:
+        """Bucket ids by frequency across the reference traces, most
+        frequent first (a stable sort: ties in bucket order); the tree
+        decides the most-often-hit buckets first."""
+        counts = np.zeros((self.cfg.H,), np.int64)
+        for e in encs:
+            counts += np.bincount(e.hint_ids[e.mask], minlength=self.cfg.H)
+        return np.argsort(-counts, kind="stable")[
+            : self.mcts_cfg.tree_depth].astype(np.int32)
+
+    def _next_search_seed(self) -> int:
+        """The seed of the next search; advances the key, so a saved and
+        loaded search continues the stream."""
+        s = seed_of_key(self._key)
+        self._key = key_data(generation_seed(s, 0))
+        return generation_seed(s, 1)
+
+    def run(self, encoded, generations: int = 1) -> BestSchedule:
+        """Run ``max(1, generations // 64)`` independent tree searches of
+        ``mcts_cfg.simulations`` simulations each (the GA's
+        ``generations`` knob maps onto the simulation budget); returns the
+        best schedule seen so far (monotonic across calls)."""
+        encs = encoded if isinstance(encoded, (list, tuple)) else [encoded]
+        t0 = time.perf_counter()
+        traces, pairs, archive, failures = self._device_inputs(encs)
+        hint_order = self._hint_order(encs)
+        seeds = (None if self._seed_tables is None else
+                 torch.from_numpy(self._seed_tables).to(self.device))
+        searches = max(1, generations // 64)
+        for _ in range(searches):
+            res = mcts_search(self._next_search_seed(), traces, pairs,
+                              archive, failures, hint_order, self.cfg.H,
+                              self.mcts_cfg, self.cfg.weights,
+                              coin=self._dev_coin, seeds=seeds)
+            fit = float(res.best_fitness)
+            if fit > self._best_fitness:
+                self._best_fitness = fit
+                self._best_delays = res.best_delays.cpu().numpy()
+                self._best_faults = res.best_faults.cpu().numpy()
+        self.last_run_seconds = time.perf_counter() - t0
+        self.generations_run += searches * self.mcts_cfg.simulations
+        return self.best()
+
+    def best(self) -> BestSchedule:
+        return BestSchedule(delays=self._best_delays,
+                            faults=self._best_faults,
+                            fitness=self._best_fitness)
+
+    # -- persistence -------------------------------------------------------
+
+    def _state_dict(self) -> dict:
+        return {
+            "best_fitness": np.asarray(self._best_fitness, np.float32),
+            "best_delays": self._best_delays,
+            "best_faults": self._best_faults,
+        }
+
+    def _restore_state(self, arrays: dict) -> None:
+        self._best_fitness = float(arrays["best_fitness"])
+        self._best_delays = np.array(arrays["best_delays"], np.float32)
+        self._best_faults = np.array(arrays["best_faults"], np.float32)

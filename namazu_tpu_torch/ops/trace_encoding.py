@@ -63,6 +63,20 @@ def hint_bucket(hint: str, n_buckets: int = DEFAULT_H) -> int:
     return fnv64a(hint.encode()) % n_buckets
 
 
+def fault_coin(seed: int, H: int = DEFAULT_H) -> np.ndarray:
+    """Deterministic per-bucket fault coin ``f32[H]`` in [0, 1).
+
+    The ``tpu_search`` policy drops an event iff ``coin[bucket] <
+    faults[bucket]``, with this same coin, and the scorer removes exactly
+    those events (``ops/schedule.py`` ``drop_mask``): a searched fault
+    table replays to the drops it was scored with."""
+    return np.array(
+        [fnv64a(f"{seed}|fault|{h}".encode()) % 10_000 / 10_000.0
+         for h in range(H)],
+        np.float32,
+    )
+
+
 # Signal classes registered by namazu_tpu/signal/{event,action}.py, split
 # by whether the class overrides Event.default_fault_action (a packet
 # drop, an EIO): a static copy, held to the reference's registry by

@@ -30,6 +30,7 @@ from namazu_tpu_torch.models.ga import (
 from namazu_tpu_torch.ops.schedule import (
     ScoreWeights,
     TraceArrays,
+    normalize_fault_trace,
     score_population_multi,
 )
 
@@ -80,17 +81,28 @@ def island_step(state: IslandState, seed: int, traces: TraceArrays,
                 weights: ScoreWeights = ScoreWeights(),
                 novelty_scale=None,
                 mutation_bias: Optional[torch.Tensor] = None,
-                draws: Optional[GADraws] = None
+                draws: Optional[GADraws] = None,
+                coin: Optional[torch.Tensor] = None
                 ) -> Tuple[IslandState, torch.Tensor]:
     """One generation: score -> island best -> GA -> best update.
     Returns the new state and this generation's best fitness (a device
-    scalar; nothing here waits for the device)."""
+    scalar; nothing here waits for the device). With the fault ``coin
+    f32[H]`` the population's fault half is scored; ``cfg.max_fault > 0``
+    without one raises ``ValueError``, as in the reference (the fault
+    half would evolve unscored)."""
+    if coin is None and cfg.max_fault > 0:
+        raise ValueError(
+            "fault search is enabled (max_fault > 0) but no fault coin "
+            "was passed to the island step; build one with "
+            "trace_encoding.fault_coin(seed, H)")
     if traces.hint_ids.dim() == 1:  # single trace -> batch of one
         traces = TraceArrays(*(None if x is None else x[None]
                                for x in traces))
+    traces = normalize_fault_trace(traces, coin)
     pop = state.pop
     fitness, _ = score_population_multi(
         pop.delays, traces, pairs, archive, failures, weights,
+        faults=None if coin is None else pop.faults, coin=coin,
         novelty_scale=novelty_scale)
     best_i = fitness.argmax()
     fit = fitness[best_i]
@@ -115,7 +127,8 @@ def fused_step(state: IslandState, generations: int, seed: int,
                archive: torch.Tensor, failures: torch.Tensor,
                cfg: GAConfig, weights: ScoreWeights = ScoreWeights(),
                novelty_scale=None,
-               mutation_bias: Optional[torch.Tensor] = None
+               mutation_bias: Optional[torch.Tensor] = None,
+               coin: Optional[torch.Tensor] = None
                ) -> Tuple[IslandState, torch.Tensor]:
     """``generations`` island steps in one call, with no host sync inside.
     Returns the state and ``fit_hist f32[generations]``, the best fitness
@@ -126,6 +139,6 @@ def fused_step(state: IslandState, generations: int, seed: int,
     for _ in range(generations):
         state, fit = island_step(state, seed, traces, pairs, archive,
                                  failures, cfg, weights, novelty_scale,
-                                 mutation_bias)
+                                 mutation_bias, coin=coin)
         hist.append(fit)
     return state, torch.stack(hist)

@@ -6,7 +6,8 @@ The ``tpu_search`` policy of ``namazu_tpu``, configured with
 over the framed JSON wire (``wire.py``) at the end of each run. This
 process answers it with the port: it reads the experiment's storage
 directory (``history.py``), runs the same ingest (``models/ingest.py``),
-evolves on the card (``models/search.py``), saves the checkpoint in the
+evolves on the card (``models/search.py``: the GA, with the fault half
+and order mode, or the MCTS backend), saves the checkpoint in the
 reference's keys and returns the table the policy installs. One search
 is kept per experiment key, so a campaign's later requests are warm.
 
@@ -20,9 +21,11 @@ Ops, with the reference's response shapes:
 * the knowledge ops are answered ``ok: false``, as a reference sidecar
   started without ``--pool-dir`` answers them.
 
-Params the port cannot honour are refused with ``{"ok": false, "error":
-"namazu_tpu_torch: <what> is not ported yet"}``; the policy then falls
-back to its own in-process search. Run it with
+Params the port cannot honour (causality guidance, several devices, a
+device-trace directory, the failure pool, the knowledge service) are
+refused with ``{"ok": false, "error": "namazu_tpu_torch: <what> is not
+ported yet"}``; the policy then falls back to its own in-process search.
+Run it with
 
     python -m namazu_tpu_torch.sidecar --listen 127.0.0.1:10990
 
@@ -50,9 +53,12 @@ from namazu_tpu_torch.models.ingest import (
     ingest_history,
     unported,
 )
+from namazu_tpu_torch.models.mcts import MCTSConfig
 from namazu_tpu_torch.models.search import (
+    MCTSSearch,
     ScheduleSearch,
     SearchConfig,
+    SearchBase,
     make_score_weights,
 )
 from namazu_tpu_torch.wire import FramedServer, request  # noqa: F401
@@ -70,14 +76,8 @@ class Unported(NotImplementedError):
 
 
 def _unported_search_params(p: dict) -> Optional[str]:
-    if p.get("search_backend", "ga") == "mcts":
-        return "the MCTS backend (search_backend = \"mcts\")"
     if p.get("guidance"):
         return "causality guidance (guidance)"
-    if p.get("release_mode", "delay") == "reorder":
-        return "order mode (release_mode = \"reorder\")"
-    if float(p.get("max_fault", 0.0) or 0.0) > 0:
-        return "fault search (max_fault > 0)"
     if int(p.get("devices") or 1) > 1:
         return "a search over several devices (devices > 1)"
     if p.get("device_trace_dir"):
@@ -86,10 +86,11 @@ def _unported_search_params(p: dict) -> Optional[str]:
 
 
 def build_search_from_params(p: dict, device: DeviceLike = "cuda"
-                             ) -> ScheduleSearch:
+                             ) -> SearchBase:
     """A search from the policy's flat params dict (the reference
-    policy's ``_search_params``), with the reference sidecar's defaults;
-    raises :class:`Unported` for a knob the port cannot honour."""
+    policy's ``_search_params``), with the reference sidecar's defaults:
+    the GA, or with ``search_backend = "mcts"`` the MCTS backend; raises
+    :class:`Unported` for a knob the port cannot honour."""
     what = _unported_search_params(p)
     if what is not None:
         raise Unported(what)
@@ -120,6 +121,16 @@ def build_search_from_params(p: dict, device: DeviceLike = "cuda"
         migrate_every=int(p.get("migrate_every", 1)),
         dcn_migrate_every=int(p.get("dcn_migrate_every", 1)),
     )
+    if p.get("search_backend", "ga") == "mcts":
+        mcts_cfg = MCTSConfig(
+            tree_depth=p.get("mcts_tree_depth", 24),
+            n_levels=p.get("mcts_levels", 8),
+            simulations=p.get("mcts_simulations", 256),
+            rollouts=p.get("mcts_rollouts", 64),
+            max_delay=p.get("max_interval", 0.1),
+            max_fault=p.get("max_fault", 0.0),
+        )
+        return MCTSSearch(cfg, mcts_cfg=mcts_cfg, device=device)
     return ScheduleSearch(cfg, device=device)
 
 
@@ -129,7 +140,7 @@ class SearchService:
     def __init__(self, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         # key -> (params fingerprint, search)
-        self._searches: Dict[str, Tuple[str, ScheduleSearch]] = {}
+        self._searches: Dict[str, Tuple[str, SearchBase]] = {}
         self._lock = threading.Lock()
         # one lock per key across ingest + evolve + save: a second request
         # for the same storage queues behind the one in flight
@@ -153,7 +164,7 @@ class SearchService:
                              "(namazu_tpu_torch serves search ops only)"}
         return {"ok": False, "error": f"unknown op {op!r}"}
 
-    def search_for(self, key: str) -> Optional[ScheduleSearch]:
+    def search_for(self, key: str) -> Optional[SearchBase]:
         with self._lock:
             cached = self._searches.get(key)
         return None if cached is None else cached[1]
@@ -179,7 +190,7 @@ class SearchService:
             self._searches[key] = (fp, search)
         return search
 
-    def _maybe_reload(self, search: ScheduleSearch, checkpoint: str) -> None:
+    def _maybe_reload(self, search: SearchBase, checkpoint: str) -> None:
         """Reload a cached search whose checkpoint on disk is ahead of it
         (the policy's in-process fallback ran and saved between two
         requests); serving the stale state would overwrite that work."""

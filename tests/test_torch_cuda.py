@@ -1,7 +1,9 @@
 """namazu_tpu_torch on the card: the pair-distance kernel (B1) and the
 single-archive kernel (B2) against their plain versions, the wrapper's
-input checks, and a small search that must launch B1 once per generation
-and once more per surrogate re-rank. Every test needs a CUDA card and skips
+input checks, a small search that must launch B1 once per generation
+and once more per surrogate re-rank, the fault and order-mode scorer on
+the card against the CPU (ranks and drop counts exactly), and an MCTS
+search that launches B1 once per simulation. Every test needs a CUDA card and skips
 without one; on a machine with a card run
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -133,8 +135,8 @@ def test_kernels_on_the_search_s_own_feature_rows(card):
     s.add_failure_trace(enc(200))
     traces, pairs, archive, failures = s._device_inputs([enc(300),
                                                          enc(1200)])
-    feats = sched._genome_features(s._state.pop.delays, traces, pairs,
-                                   s.cfg.weights.tau)
+    feats, _ = sched._genome_features(s._state.pop.delays, traces, pairs,
+                                      s.cfg.weights.tau)
     feats = feats.reshape(-1, feats.shape[-1]).contiguous()
     for occ in ((None, None), (s._archive_n, s._failure_n)):
         got = pd.min_sq_distance_pair(feats, archive, failures, *occ)
@@ -200,3 +202,73 @@ def test_small_search_with_surrogate_launches_once_more(card):
     best = s.run([enc(300), enc(1200)], generations=10)
     assert pd.LAUNCHES - before == 11
     assert s._surrogate is not None and np.isfinite(best.fitness)
+
+
+def tied_scoring_case(seed=0, P=64, H=32, K=32, T=3, L=600):
+    """Priorities piled at 0 and max, repeated arrivals, a ragged mask, a
+    faultable flag and a fault half; CPU tensors."""
+    rng = np.random.RandomState(seed)
+    hint = torch.from_numpy(rng.randint(0, H, (T, L))).long()
+    arr = np.sort(rng.rand(T, L).astype(np.float32) * 0.3, axis=1)
+    arr[:, 1::2] = arr[:, ::2][:, : arr[:, 1::2].shape[1]]
+    mask = np.zeros((T, L), bool)
+    for t in range(T):
+        mask[t, : L - 31 * t] = True
+    prio = (rng.rand(P, H) * 0.05).astype(np.float32)
+    prio[rng.rand(P, H) < 0.3] = 0.0
+    prio[rng.rand(P, H) < 0.2] = np.float32(0.05)
+    trace = sched.TraceArrays(hint, torch.from_numpy(arr),
+                              torch.from_numpy(mask),
+                              torch.from_numpy(rng.rand(T, L) > 0.3))
+    return (torch.from_numpy(prio),
+            torch.from_numpy((rng.rand(P, H) * 0.3).astype(np.float32)),
+            torch.from_numpy(te.fault_coin(seed, H)), trace,
+            torch.from_numpy(te.sample_pairs(K, H, seed)))
+
+
+def to(x, dev):
+    return type(x)(*(None if v is None else v.to(dev) for v in x)) \
+        if isinstance(x, tuple) else x.to(dev)
+
+
+def test_order_ranks_and_drops_on_the_card_equal_the_cpu(card):
+    prio, faults, coin, trace, _ = tied_scoring_case()
+    for window in (0.0, 0.05):
+        got = sched.order_ranks(prio.to(card), to(trace, card), window)
+        want = sched.order_ranks(prio, trace, window)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    got = sched.drop_mask(faults.to(card), coin.to(card), to(trace, card))
+    assert torch.equal(got.cpu(), sched.drop_mask(faults, coin, trace))
+
+
+@pytest.mark.parametrize("order_mode", [False, True])
+def test_fault_and_order_features_on_the_card_match_the_cpu(card,
+                                                            order_mode):
+    prio, faults, coin, trace, pairs = tied_scoring_case(seed=1)
+    args = (0.001, order_mode, 0.002, 0.05)
+    got, gn = sched._genome_features(prio.to(card), to(trace, card),
+                                     pairs.to(card), *args,
+                                     faults=faults.to(card),
+                                     coin=coin.to(card))
+    want, wn = sched._genome_features(prio, trace, pairs, *args,
+                                      faults=faults, coin=coin)
+    torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(gn.cpu(), wn)
+
+
+def test_mcts_search_launches_once_per_simulation(card):
+    from namazu_tpu_torch.models.mcts import MCTSConfig, mcts_search
+
+    _, _, _, trace, pairs = tied_scoring_case(seed=2)
+    cfg = MCTSConfig(tree_depth=6, n_levels=4, simulations=24, rollouts=16,
+                     max_delay=0.05)
+    archive = torch.rand((16, 32), device=card)
+    failures = torch.rand((4, 32), device=card)
+    pd.LAUNCHES = 0
+    res = mcts_search(3, to(trace, card), pairs.to(card), archive,
+                      failures, np.arange(6), 32, cfg)
+    torch.cuda.synchronize()
+    assert pd.LAUNCHES == cfg.simulations
+    assert res.tree_visits[0] == cfg.simulations
+    assert np.isfinite(float(res.best_fitness))

@@ -72,8 +72,9 @@ def test_blockwise_first_occurrence_matches_reference_exactly(L):
     want, _ = js.first_occurrence_blockwise(
         jnp.asarray(d), jnp.asarray(hint[1]), jnp.asarray(arrival[1]),
         jnp.asarray(mask[1]))
-    got = ts.first_occurrence_blockwise(
+    got, ndrop = ts.first_occurrence_blockwise(
         torch.from_numpy(d), ttrace(hint[1], arrival[1], mask[1]))
+    assert ndrop is None  # no fault half, no drop count
     assert np.array_equal(got.numpy(), np.asarray(want))
     # and the port's blockwise and dense paths agree with each other
     tt = ttrace(hint[1], arrival[1], mask[1])
@@ -147,21 +148,6 @@ def test_score_population_multi_matches(kind):
     assert got_fit.shape == (P,) and got_feats.shape == (P, T, K)
     close(got_feats.numpy(), want_feats)
     assert_same_ranking(got_fit.numpy(), want_fit)
-
-
-def test_order_mode_and_faults_raise():
-    hint, arrival, mask, delays, pairs, archive, failures = make_case(128)
-    args = (torch.from_numpy(delays), ttrace(hint, arrival, mask),
-            torch.from_numpy(pairs), torch.from_numpy(archive),
-            torch.from_numpy(failures))
-    with pytest.raises(NotImplementedError, match="order mode"):
-        ts.score_population_multi(*args, ts.ScoreWeights(order_mode=True))
-    with pytest.raises(NotImplementedError, match="faults"):
-        ts.score_population_multi(*args, faults=torch.zeros(P, H),
-                                  coin=torch.zeros(H))
-    with pytest.raises(NotImplementedError, match="faults"):
-        ts.score_population(args[0], ttrace(hint[0], arrival[0], mask[0]),
-                            *args[2:], coin=torch.zeros(H))
 
 
 def test_score_weights_fields_match_reference():

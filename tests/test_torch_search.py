@@ -262,8 +262,7 @@ def test_resident_traces_append_and_rebuild():
     assert s._traces.rebuilds == 2
 
 
-@pytest.mark.parametrize("what", ["devices", "order", "faults",
-                                  "guidance", "mcts"])
+@pytest.mark.parametrize("what", ["devices", "guidance"])
 def test_unported_features_raise(what):
     from namazu_tpu_torch.sidecar import build_search_from_params
 
@@ -271,17 +270,9 @@ def test_unported_features_raise(what):
         if what == "devices":
             build_search_from_params({"H": H, "K": K, "population": 64,
                                       "devices": 2}, device="cpu")
-        elif what == "order":
-            tsearch.ScheduleSearch(port_cfg(
-                weights=tsearch.make_score_weights("reorder")), device="cpu")
-        elif what == "faults":
-            tsearch.ScheduleSearch(port_cfg()._replace(
-                ga=tga.GAConfig(max_fault=0.1)), device="cpu")
-        elif what == "guidance":
+        else:
             tsearch.ScheduleSearch(port_cfg(),
                                    device="cpu").enable_guidance()
-        else:
-            tsearch.MCTSSearch(port_cfg())
 
 
 def test_config_and_weights_match_reference():

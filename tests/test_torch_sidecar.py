@@ -2,7 +2,9 @@
 CPU: the framed wire with keep-alive, the reference's response shapes,
 refusal of what is not ported, checkpoints shared with the reference's
 in-process search, and the reference ``tpu_search`` policy installing the
-port's table through ``sidecar = "host:port"``.
+port's table through ``sidecar = "host:port"``, for the GA in delay mode,
+with the fault half (``max_fault > 0``), in order mode (``release_mode =
+"reorder"``) and for the MCTS backend.
 
 Sizes are small (P=64, H=K=32, runs of 240 events). Tables and fitness
 crossing the wire are compared exactly (JSON carries f32 values as
@@ -134,10 +136,7 @@ def test_no_history_answer(server, tmp_path):
 
 
 @pytest.mark.parametrize("where,knob,value,what", [
-    ("search", "search_backend", "mcts", "MCTS"),
     ("search", "guidance", True, "guidance"),
-    ("search", "release_mode", "reorder", "order mode"),
-    ("search", "max_fault", 0.1, "fault search"),
     ("search", "devices", 4, "several devices"),
     ("search", "device_trace_dir", "/tmp/trace", "device-trace"),
     ("ingest", "failure_pool", "/tmp/pool", "failure pool"),
@@ -220,6 +219,85 @@ def test_reference_policy_installs_the_port_table(server, history):
                           port.best().delays)
 
 
+def run_policy(server, history, **params):
+    """A reference tpu_search policy pointed at the port's sidecar runs
+    one search request; returns the policy and the port's search."""
+    from namazu_tpu.policy import create_policy
+
+    pol = create_policy("tpu_search")
+    pol.load_config(Config({
+        "explore_policy": "tpu_search",
+        "explore_policy_param": dict({
+            "seed": 5, "max_interval": 50, "hint_buckets": 32,
+            "feature_pairs": 32, "population": 64, "generations": 4,
+            "migrate_k": 2, "fused_chunk": 3,
+            "sidecar": addr(server), "checkpoint": "side_pol.npz",
+        }, **params),
+    }))
+    installs = []
+    real = pol._install_tables
+
+    def spy(delays, faults, source):
+        installs.append(source)
+        real(delays, faults, source)
+
+    pol._install_tables = spy
+    pol.set_history_storage(jload(history.dir))
+    pol.start()
+    try:
+        assert pol.wait_for_search(timeout=120)
+    finally:
+        pol.shutdown()
+    assert installs == ["sidecar"]
+    assert pol._search is None
+    port = server.service.search_for(history.dir)
+    assert port is not None
+    assert np.array_equal(np.asarray(pol._delays, np.float32),
+                          port.best().delays)
+    return pol, port
+
+
+def test_policy_replays_the_port_fault_table(server, history):
+    """max_fault > 0: the policy installs the port's evolved fault table,
+    and its replay decision drops exactly the buckets where the coin lies
+    below the table."""
+    from namazu_tpu_torch.ops import trace_encoding as tte
+
+    pol, port = run_policy(server, history, max_fault=0.3)
+    assert port.cfg.ga.max_fault == 0.3 and port._coin is not None
+    faults = port.best().faults
+    assert faults.any() and (faults <= np.float32(0.3)).all()
+    assert np.array_equal(np.asarray(pol._faults, np.float32), faults)
+    coin = tte.fault_coin(5, 32)
+    hints = [f"10.0.0.{i % 13}->10.0.0.{i % 11}:m{i % 5}"
+             for i in range(400)]
+    buckets = {tte.hint_bucket(h, 32) for h in hints}
+    assert len(buckets) == 32
+    want = [bool(coin[tte.hint_bucket(h, 32)]
+                 < faults[tte.hint_bucket(h, 32)]) for h in hints]
+    assert [pol._fault_for(h) for h in hints] == want
+    assert any(want) and not all(want)
+
+
+def test_policy_installs_the_port_order_mode_table(server, history):
+    pol, port = run_policy(server, history, release_mode="reorder",
+                           reorder_window=50, reorder_gap=2)
+    w = port.cfg.weights
+    assert w.order_mode and (w.order_window, w.order_gap) == (0.05, 0.002)
+    assert port.generations_run == 4
+
+
+def test_policy_installs_the_port_mcts_table(server, history):
+    from namazu_tpu_torch.models.search import MCTSSearch
+
+    pol, port = run_policy(server, history, search_backend="mcts",
+                           mcts_simulations=8, mcts_tree_depth=4,
+                           mcts_levels=3, mcts_rollouts=8)
+    assert isinstance(port, MCTSSearch)
+    assert port.generations_run == 8  # one search of 8 simulations
+    assert np.isfinite(port.best().fitness)
+
+
 def test_cuda_is_the_default_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -254,3 +332,23 @@ def test_chip_smoke_carries_the_policy_defaults(tmp_path):
         "cpu", str(tmp_path), generations=3, search_params=sp,
         ingest_params=ip, runs=12, failures=4, events=200)
     assert launches == {"min_sq_pair": 0, "min_sq": 0}
+
+
+def test_chip_smoke_rehearses_the_fault_order_and_mcts_paths(tmp_path):
+    """chip_smoke.py's phases 6-8 at a tiny size on the CPU: each path's
+    two requests answer, re-score on the CPU to the returned fitness and
+    launch no kernel."""
+    import chip_smoke
+
+    sp = dict(chip_smoke.POLICY_SEARCH_PARAMS, H=32, K=32, population=64,
+              fused_chunk=3, mcts_simulations=12, mcts_tree_depth=6,
+              mcts_rollouts=8)
+    ip = dict(chip_smoke.POLICY_INGEST_PARAMS, H=32, order_mode_max_l=512)
+    launches, numbers = chip_smoke.drive_extra_paths(
+        "cpu", str(tmp_path), generations=64, search_params=sp,
+        ingest_params=ip, runs=12, failures=4, events=200)
+    assert sorted(launches) == ["sidecar_faults", "sidecar_mcts",
+                                "sidecar_order"]
+    assert all(n == {"min_sq_pair": 0, "min_sq": 0}
+               for n in launches.values())
+    assert numbers == {}  # device timings are taken on the card only
