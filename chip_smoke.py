@@ -56,12 +56,35 @@ Phases, each of which fails the script on any error:
    rollouts), one search a request: B1 launches 2 * 256 times, the
    checkpoint says ``backend = "mcts"``, the returned table re-scored on
    the CPU gives the returned fitness; simulations/s and rollouts/s,
-   and one search traced for the device's busy share.
+   and one search traced for the device's busy share;
+9. islands (BASELINE config 4's layout): a search built from the
+   policy's defaults with ``max_fault = 0.1`` over 8 islands of 512 on
+   the card (ring of 8 every generation), fed phase 6's history, run
+   twice for 64 generations: B1 launches once a shard and generation and
+   once a re-rank (2 * 64 + 2), the returned table re-scored on the CPU
+   gives the returned fitness; a marker planted on island 0 rides the
+   ring into island 1's tail rows and not its elites; fused == stepwise
+   over 5 generations; 2 shards of 4 == 1 shard of 8 after 16
+   generations, bit for bit; then the same islands in delay mode on
+   phase 5's history; schedules/s, the GA's and one migration's ms, and
+   one 16-generation chunk traced (device ms, busy share, launches and
+   RNG launches a generation);
+10. the 2 x 4 hybrid mesh on the card (host ring of 2 every 4th
+   generation) in delay mode, the same checks and timings as phase 9,
+   and the host ring landing only on generations divisible by 4; 8
+   root-parallel MCTS trees in lockstep at the policy's MCTS defaults
+   (B1 launches once a simulation for all 8 trees, one sync a
+   simulation, the table re-scored on the CPU); a one-process NCCL world
+   started by ``initialize_from_env`` in which the hybrid search goes
+   through the collectives and equals the same mesh without them, bit
+   for bit.
 
 Phase 2 also holds B1 at the rollout shapes N = 256 and N = 64 (A = 512,
-F = 64, K = 256) and times it there. The last lines are the card line, a
-JSON line with every kernel's numbers (launches on every path), and
-``{"ok": true, "device": {...}}``.
+F = 64, K = 256) and times it there. Several cards and several processes
+are not driven here (one card): the islands and trees of phases 9-10
+share the card. The last lines are the card line, a JSON line with every
+kernel's numbers (launches on every path), and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -651,6 +674,9 @@ def device_profile(fn, steps: int) -> dict:
         "device_ms": busy_ms / steps,
         "device_busy_share": busy_ms / wall_ms if busy_ms else None,
         "launches": sum(e.count for e in kernels) / steps,
+        # torch's RNG kernels (uniform, normal, randint) a step
+        "rng_launches": sum(e.count for e in kernels
+                            if "distribution" in e.key) / steps,
         "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
                            / steps for e in top},
     }
@@ -1025,6 +1051,423 @@ def drive_extra_paths(device, work_dir, generations=GENERATIONS,
     return launches, numbers
 
 
+# -- phases 9-10: the island model -----------------------------------------
+
+
+ISLANDS = 8  # phase 9: 8 islands of 512 on the card (BASELINE config 4)
+HYBRID_HOSTS = 2  # phase 10: a 2 x 4 hybrid mesh (config 5's layout)
+MARK = 0.0123  # a delay no evolved row holds exactly
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def island_search(device, storage, sp, ip, mesh):
+    """A search built from the policy's params over ``mesh`` and fed the
+    history, as the sidecar builds and feeds one; returns ``(search,
+    references)``."""
+    from namazu_tpu_torch.history import load_storage
+    from namazu_tpu_torch.models.ingest import IngestParams, ingest_history
+    from namazu_tpu_torch.sidecar import build_search_from_params
+
+    search = build_search_from_params(sp, device, mesh=mesh)
+    refs = ingest_history(search, load_storage(storage), IngestParams(
+        **{k: v for k, v in ip.items() if k in IngestParams._fields}))
+    return search, refs
+
+
+def sync(device) -> None:
+    if device != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+
+
+def drive_island_path(name, device, storage, sp, ip, mesh, generations):
+    """Two ``run()`` calls of a search over ``mesh``, the launch counts
+    set to 0 just before them and read just after; B1 must launch once a
+    shard and generation and once a re-rank, and the returned table
+    re-scored on the CPU must give the returned fitness. Returns
+    ``(launches, search, references, numbers)``."""
+    import numpy as np
+
+    from namazu_tpu_torch.ops import pair_distance as pd
+
+    t0 = time.perf_counter()
+    search, refs = island_search(device, storage, sp, ip, mesh)
+    print(f"  {name}: {mesh}, population {search.population}, rings "
+          f"{search._rings}; built and ingested in "
+          f"{time.perf_counter() - t0:.2f} s")
+    sync(device)
+    pd.LAUNCHES = pd.SINGLE_LAUNCHES = 0
+    bests, rates = [], []
+    for r in range(2):
+        best = search.run(refs, generations=generations)
+        secs = search.last_run_seconds
+        bests.append(best)
+        rates.append(search.population * generations / secs)
+        print(f"  run {r}: fitness {best.fitness:.6f} (best seen "
+              f"{search.best().fitness:.6f}), {secs:.4f} s, "
+              f"{generations / secs:.2f} generations/s, {rates[-1]:.1f} "
+              f"schedules/s, re-rank "
+              f"{search.last_rerank_seconds * 1e3:.2f} ms")
+    launches = {"min_sq_pair": pd.LAUNCHES, "min_sq": pd.SINGLE_LAUNCHES}
+    check(search._surrogate is not None, "the surrogate did not train")
+    expect = len(mesh.shards) * 2 * generations + 2
+    if device != "cpu":
+        check(launches["min_sq_pair"] == expect,
+              f"pair kernel launched {launches['min_sq_pair']} times on "
+              f"{name}, expected {expect}")
+    b1 = bests[1]
+    check(all(math.isfinite(b.fitness) for b in bests)
+          and b1.delays.shape == (search.cfg.H,), "bad returned table")
+    faults = np.asarray(b1.faults, np.float32)
+    if search.cfg.ga.max_fault > 0:
+        check(faults.min() >= 0.0 and faults.max() <= np.float32(
+            search.cfg.ga.max_fault) and faults.any(),
+            "fault table outside [0, max_fault] or all zero")
+    else:
+        check(not faults.any(), "faults returned without a fault half")
+    rescored = rescore_on_cpu(search, refs, b1.delays, b1.faults)
+    check(math.isclose(rescored, b1.fitness, rel_tol=RTOL, abs_tol=ATOL),
+          f"re-scored fitness {rescored} != returned {b1.fitness}")
+    print(f"  returned table re-scored on the CPU: {rescored:.6f} "
+          f"(returned {b1.fitness:.6f})")
+    return launches, search, refs, {"schedules_per_s": rates}
+
+
+def _step_args(search, refs):
+    traces, pairs, archive, failures = search._device_inputs(refs)
+    return ((search._seed, traces, pairs, archive, failures, search.cfg.ga,
+             search.cfg.weights),
+            {"novelty_scale": search.novelty_scale(),
+             "coin": search._dev_coin, "mesh": search.mesh,
+             "rings": search._rings})
+
+
+def island_pops(state, mesh, I):
+    """Delays ``[I, Pi, H]`` of every local island, on the primary
+    device."""
+    from namazu_tpu_torch.parallel.islands import local_population
+
+    d = local_population(state.pop, mesh).delays
+    return d.view(I, -1, d.shape[-1])
+
+
+def check_island_contracts(search, refs) -> None:
+    """Phase 9's contracts on the search's own state: the marker rides
+    the ring into the neighbour's tail and not its elites; fused ==
+    stepwise over 5 generations; 2 shards of 4 == 1 shard of 8 after 16
+    generations, bit for bit."""
+    import torch
+
+    from namazu_tpu_torch.models.ga import Population
+    from namazu_tpu_torch.parallel.islands import (
+        fused_step,
+        island_step,
+        local_population,
+        ring_plan,
+        shard_population,
+    )
+
+    args, kw = _step_args(search, refs)
+    mesh, st, I = search.mesh, search._state, search.mesh.n_islands
+    Pi = search.population // I
+    _, kk, _, _ = ring_plan(mesh, search._rings, Pi, search.cfg.ga)[0]
+    n_elite = max(1, int(Pi * search.cfg.ga.elite_frac))
+    pop = local_population(st.pop, mesh)
+    planted = pop.delays.clone()
+    planted[:Pi] = MARK
+    st0 = st._replace(pop=shard_population(
+        Population(planted, pop.faults.clone()), mesh))
+    d = island_pops(island_step(st0, *args, **kw)[0], mesh, I)
+    check(bool((d[0, :min(kk, n_elite)] == MARK).all()),
+          "island 0's elite rows are not its marker rows")
+    check(torch.equal(d[1, Pi - kk:], d[0, :kk]),
+          f"island 1's tail rows [{Pi - kk}, {Pi}) do not hold island 0's "
+          f"leading rows")
+    check(not bool((d[1, :n_elite] == MARK).all(-1).any()),
+          "a migrant overwrote island 1's elite rows")
+    print(f"  marker: island 1's rows [{Pi - kk}, {Pi}) hold island 0's "
+          f"leading {kk}; its {n_elite} elite rows hold none")
+
+    a, ha = fused_step(st, 5, *args, **kw)
+    b, hb = st, []
+    for _ in range(5):
+        b, fit = island_step(b, *args, **kw)
+        hb.append(fit)
+    check(torch.equal(island_pops(a, mesh, I), island_pops(b, mesh, I))
+          and torch.equal(ha, torch.stack(hb))
+          and torch.equal(a.best_delays, b.best_delays),
+          "fused != stepwise over 5 generations")
+    two = mesh.reshard(I // 2)
+    kw2 = dict(kw, mesh=two)
+    s2 = st._replace(pop=shard_population(pop, two))
+    one, h1 = fused_step(st, 16, *args, **kw)
+    other, h2 = fused_step(s2, 16, *args, **kw2)
+    check(len(two.shards) == 2 and torch.equal(
+        island_pops(one, mesh, I), island_pops(other, two, I))
+          and torch.equal(h1, h2)
+          and torch.equal(one.best_delays, other.best_delays),
+          "2 shards of 4 != 1 shard of 8 after 16 generations")
+    print("  fused == stepwise over 5 generations; 2 shards of "
+          f"{I // 2} == 1 shard of {I} after 16 generations, bit for bit")
+
+
+def profile_islands(search, refs) -> dict:
+    """One fused chunk of the island search traced by torch.profiler,
+    and its GA (every island's draws included) and one migration of
+    every ring timed alone by CUDA events."""
+    from namazu_tpu_torch.models.ga import Population, ga_generation
+    from namazu_tpu_torch.ops import schedule as sched
+    from namazu_tpu_torch.parallel.islands import (
+        _migrate,
+        fused_step,
+        generator_for,
+        ring_plan,
+    )
+
+    args, kw = _step_args(search, refs)
+    mesh, st, cfg = search.mesh, search._state, search.cfg
+    I = mesh.n_islands
+    Pi = search.population // I
+    d, f = st.pop
+    fitness, _ = sched.score_population_multi(
+        d, args[1], args[2], args[3], args[4], cfg.weights,
+        faults=None if search._dev_coin is None else f,
+        coin=search._dev_coin)
+    view = Population(d.view(I, Pi, -1), f.view(I, Pi, -1))
+    plan = ring_plan(mesh, search._rings, Pi, cfg.ga)
+    copy = [Population(view.delays.clone(), view.faults.clone())]
+
+    def ga():
+        return ga_generation(
+            [generator_for(search._seed, st.gen, search.device,
+                           mesh.coords(g)) for g in range(I)],
+            view, fitness.view(I, Pi), cfg.ga)
+
+    out = {"ga_ms": cuda_time_ms(ga, iters=20),
+           "migration_ms": cuda_time_ms(
+               lambda: _migrate(copy, mesh, plan, 0), iters=20)}
+    chunk = cfg.fused_chunk
+    prof = device_profile(lambda: fused_step(st, chunk, *args, **kw), chunk)
+    out.update({f"generation_{k}" if k != "device_busy_share" else k: v
+                for k, v in prof.items()})
+    print(f"  a generation under the profiler: {prof['wall_ms']:.3f} ms "
+          f"wall, {prof['device_ms']:.3f} ms device, busy "
+          f"{prof['device_busy_share']:.1%}, {prof['launches']:.1f} "
+          f"launches ({prof['rng_launches']:.1f} RNG); GA "
+          f"{out['ga_ms']:.3f} ms, migration {out['migration_ms']:.4f} ms")
+    return out
+
+
+def check_host_ring_cadence(search, refs, steps: int = 8) -> None:
+    """Phase 10: the host ring's migrants land only on generations
+    divisible by its cadence (``dcn_migrate_every``)."""
+    import torch
+
+    from namazu_tpu_torch.parallel.islands import island_step, ring_plan
+
+    args, kw = _step_args(search, refs)
+    mesh, st = search.mesh, search._state
+    I, (nh, ni) = mesh.n_islands, mesh.sizes
+    Pi = search.population // I
+    (_, _, _, _), (h_axis, kk, off, every) = ring_plan(
+        mesh, search._rings, Pi, search.cfg.ga)
+    check(h_axis == 0 and every > 1, "no host ring with a cadence")
+    seen = []
+    for _ in range(steps):
+        gen = st.gen
+        st = island_step(st, *args, **kw)[0]
+        d = island_pops(st, mesh, I).view(nh, ni, Pi, -1)
+        landed = torch.equal(d[1, :, Pi - off - kk:Pi - off], d[0, :, :kk])
+        check(landed == (gen % every == 0),
+              f"host ring at generation {gen}: landed={landed}, cadence "
+              f"{every}")
+        seen.append(gen)
+    print(f"  host ring ({kk} rows every {every} generations) landed on "
+          f"{[g for g in seen if g % every == 0]} of generations {seen}")
+
+
+def count_syncs(fn) -> int:
+    """Synchronizing CUDA calls ``fn`` makes, as torch's sync debug mode
+    flags them."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice on first use is not a sync
+    return sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def drive_mcts_trees(device, storage, sp, ip, mesh) -> tuple:
+    """Phase 10's MCTS: one search of 8 root-parallel trees in lockstep
+    at the policy's MCTS defaults; B1 launches once a simulation for all
+    trees, and one sync a simulation."""
+    import torch
+
+    from namazu_tpu_torch.models.mcts import mcts_search_trees
+    from namazu_tpu_torch.ops import pair_distance as pd
+    from namazu_tpu_torch.parallel.islands import fold_coords
+
+    search, refs = island_search(device, storage,
+                                 dict(sp, search_backend="mcts"), ip, mesh)
+    sims, trees = search.mcts_cfg.simulations, mesh.n_islands
+    sync(device)
+    pd.LAUNCHES = pd.SINGLE_LAUNCHES = 0
+    best = search.run(refs, generations=64)
+    launches = {"min_sq_pair": pd.LAUNCHES, "min_sq": pd.SINGLE_LAUNCHES}
+    secs = search.last_run_seconds
+    print(f"  {trees} trees x {sims} simulations: {secs:.4f} s, "
+          f"{sims / secs:.1f} lockstep simulations/s, "
+          f"{trees * sims / secs:.1f} tree simulations/s; fitness "
+          f"{best.fitness:.6f}")
+    if device != "cpu":
+        check(launches["min_sq_pair"] == sims,
+              f"pair kernel launched {launches['min_sq_pair']} times for "
+              f"{trees} trees, expected {sims}")
+    rescored = rescore_on_cpu(search, refs, best.delays, best.faults)
+    check(math.isclose(rescored, best.fitness, rel_tol=RTOL, abs_tol=ATOL),
+          f"re-scored fitness {rescored} != returned {best.fitness}")
+    out = {"search_s": secs, "lockstep_simulations_per_s": sims / secs,
+           "tree_simulations_per_s": trees * sims / secs}
+    if device == "cpu":
+        return launches, out
+    traces, pairs, archive, failures = search._device_inputs(refs)
+    order = search._hint_order(refs)
+    seeds = [fold_coords(12345, mesh.coords(g)) for g in range(trees)]
+
+    def run():
+        res = mcts_search_trees(seeds, traces, pairs, archive, failures,
+                                order, search.cfg.H, search.mcts_cfg,
+                                search.cfg.weights, coin=search._dev_coin)
+        return res
+
+    syncs = count_syncs(run)
+    check(syncs == sims, f"{syncs} syncs for {sims} simulations, expected "
+                         f"one a simulation")
+    sync(device)
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = device_profile(run, sims)
+    out.update({"alone_s": wall, "alone_tree_simulations_per_s":
+                trees * sims / wall, "syncs_per_simulation": syncs / sims})
+    out.update({f"simulation_{k}" if k != "device_busy_share" else k: v
+                for k, v in prof.items()})
+    print(f"  one search alone: {wall:.4f} s ({trees * sims / wall:.1f} "
+          f"tree simulations/s); {syncs / sims:.2f} syncs a simulation; "
+          f"under the profiler a simulation takes {prof['wall_ms']:.3f} ms "
+          f"wall, {prof['device_ms']:.3f} ms device, busy "
+          f"{prof['device_busy_share']:.1%}, {prof['launches']:.1f} "
+          f"launches")
+    return launches, out
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def drive_process_world(device, storage, sp, ip, generations=16) -> None:
+    """Phase 10: a one-process ``torch.distributed`` world (NCCL on the
+    card, gloo on the CPU) started by ``initialize_from_env`` from its
+    environment; the hybrid search over it goes through the collectives
+    (the host ring, the global best, the gathered population) and must
+    equal the same mesh without them bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from namazu_tpu_torch.parallel.distributed import (
+        initialize_from_env,
+        make_hybrid_mesh,
+    )
+    from namazu_tpu_torch.parallel.mesh import IslandMesh
+
+    env = {"NMZ_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "NMZ_TPU_NUM_PROCESSES": "1", "NMZ_TPU_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        check(initialize_from_env(device=device), "no process group")
+        print(f"  torch.distributed up: backend {dist.get_backend()}, "
+              f"world {dist.get_world_size()}")
+        n = HYBRID_HOSTS * (ISLANDS // HYBRID_HOSTS)
+        mesh = make_hybrid_mesh(n_hosts=HYBRID_HOSTS, devices=[device] * n)
+        check(mesh.distributed, "the mesh does not use the process group")
+        plain = IslandMesh(mesh.axis_names, mesh.sizes, [device] * n)
+        outs = []
+        for m in (mesh, plain):
+            search, refs = island_search(device, storage, sp, ip, m)
+            best = search.run(refs, generations=generations)
+            outs.append((search._fetch_population(), best))
+        (pa, ba), (pb, bb) = outs
+        check(all((x == y).all() for x, y in zip(pa, pb))
+              and ba.fitness == bb.fitness
+              and (ba.delays == bb.delays).all(),
+              "the search through the collectives differs")
+        print(f"  {generations} generations through the collectives equal "
+              f"the same mesh without them, bit for bit (fitness "
+              f"{ba.fitness:.6f})")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+        sync(device)
+    check(not torch.distributed.is_initialized(), "process group left up")
+
+
+def drive_island_paths(device, delay_storage, fault_storage,
+                       generations=GENERATIONS, search_params=None,
+                       ingest_params=None):
+    """Phases 9-10: the island search with faults (config 4's layout: 8
+    islands of 512 on the card, ring of 8 every generation) and in delay
+    mode, the 2 x 4 hybrid mesh with the host ring every 4th generation,
+    8 root-parallel MCTS trees, and a one-process distributed world.
+    Returns ``({path: launches}, {path: numbers})``."""
+    from namazu_tpu_torch.parallel.distributed import make_hybrid_mesh
+    from namazu_tpu_torch.parallel.mesh import make_island_mesh
+
+    sp0 = dict(search_params or POLICY_SEARCH_PARAMS, migrate_k=8,
+               migrate_every=1)
+    ip = ingest_params or POLICY_INGEST_PARAMS
+    launches, numbers = {}, {}
+    for name, storage, extra in (
+            ("islands_faults", fault_storage, {"max_fault": 0.1}),
+            ("islands_delay", delay_storage, {})):
+        print(f"phase: {name}")
+        launches[name], search, refs, numbers[name] = drive_island_path(
+            name, device, storage, dict(sp0, **extra), ip,
+            make_island_mesh(ISLANDS, device=device), generations)
+        if name == "islands_faults":
+            check_island_contracts(search, refs)
+        if device != "cpu":
+            numbers[name]["generation"] = profile_islands(search, refs)
+        del search, refs
+    print("phase: hybrid mesh, root-parallel MCTS, process world")
+    n = ISLANDS
+    hybrid = make_hybrid_mesh(n_hosts=HYBRID_HOSTS, devices=[device] * n)
+    sp_h = dict(sp0, dcn_migrate_every=4)
+    launches["hybrid"], search, refs, numbers["hybrid"] = drive_island_path(
+        "hybrid", device, delay_storage, sp_h, ip, hybrid, generations)
+    check_host_ring_cadence(search, refs)
+    if device != "cpu":
+        numbers["hybrid"]["generation"] = profile_islands(search, refs)
+    del search, refs
+    launches["mcts_trees"], numbers["mcts_trees"] = drive_mcts_trees(
+        device, fault_storage, sp0, ip, make_island_mesh(n, device=device))
+    drive_process_world(device, delay_storage, sp_h, ip)
+    return launches, numbers
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1096,10 +1539,16 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         print("phase: fault, order and MCTS paths (one history)")
         extra, numbers = drive_extra_paths("cuda", work)
+        torch.cuda.synchronize()
+        print(json.dumps({"paths": numbers}))
+        islands, numbers = drive_island_paths(
+            "cuda", os.path.join(work, "history"),
+            os.path.join(work, "history-mixed"))
+        extra.update(islands)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.synchronize()
-    print(json.dumps({"paths": numbers}))
+    print(json.dumps({"island_paths": numbers}))
 
     for k in (pair, single):
         k["launches"] = sidecar[k["name"]]

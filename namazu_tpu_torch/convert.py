@@ -9,6 +9,13 @@ map those arrays to the port's :class:`IslandState`, archives and
 surrogate weights and back; the port's ``ScheduleSearch.save``/``load``
 use them, and so do the tests.
 
+The population travels flat, ``[P, H]`` in row-major island order, as
+the reference saves it from any mesh, so a checkpoint moves between mesh
+sizes and layouts with no conversion of its own: the search splits it
+over its shards (``parallel/islands.py::shard_population``), or keeps a
+fresh population when ``P`` does not fit its islands. The MCTS state
+(best tables and the key) does not depend on the mesh.
+
 The surrogate's weights travel in two forms. The reference's live form
 is a flax params tree ``{"params": {"Dense_i": {"kernel": [in, out],
 "bias": [out]}}}``; the port's is ``SurrogateMLP``'s ``state_dict``

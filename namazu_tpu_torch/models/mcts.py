@@ -1,5 +1,5 @@
 """Monte-Carlo tree search over schedule genomes: the port of
-``namazu_tpu/models/mcts.py`` for one card (BASELINE config 5).
+``namazu_tpu/models/mcts.py`` (BASELINE config 5).
 
 The genome is sequentialised: hint buckets are ordered by importance
 (frequency in the reference traces), each tree level picks one of ``D``
@@ -16,18 +16,26 @@ dozen small numpy steps a simulation. The rollout runs on the card: the
 buckets, and ``score_population_multi`` over the ``R * T`` feature rows,
 which launches the pair-distance kernel (B1) once. Each simulation reads
 one number back, the rollout's mean, which the next selection needs; the
-best table stays on the card. The reference's root-parallel trees over
-several devices are not ported yet.
+best table stays on the card.
+
+Root-parallel trees (the reference's ``make_parallel_mcts``): one tree an
+island of the mesh. The trees of one shard advance in lockstep
+(:func:`mcts_search_trees`): every tree's selection and expansion on the
+host, then one batch of ``I * R`` rollout rows scored in one call and one
+sync for all I means, so one simulation of I trees costs about what one
+tree's does.
 
 Random numbers: the reference splits a ``jax.random`` key per
-simulation; here simulation ``i`` of a search seeded ``seed`` draws from
-a ``torch.Generator`` seeded from ``(seed, i)``. :class:`RolloutDraws` is
-the draws-in form, so a test can hand in the reference's own draws.
+simulation; here simulation ``i`` of a tree seeded ``seed`` draws from a
+``torch.Generator`` seeded from ``(seed, i)``, and the tree at mesh
+coordinates ``c`` of a search seeded ``s`` is seeded ``fold_coords(s,
+c)``. :class:`RolloutDraws` is the draws-in form, so a test can hand in
+the reference's own draws.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,7 +46,13 @@ from namazu_tpu_torch.ops.schedule import (
     normalize_fault_trace,
     score_population_multi,
 )
-from namazu_tpu_torch.parallel.islands import generator_for
+from namazu_tpu_torch.parallel.islands import (
+    fold_coords,
+    generator_for,
+    global_best,
+    replicate,
+)
+from namazu_tpu_torch.parallel.mesh import IslandMesh
 
 NO_CHILD = -1
 
@@ -76,11 +90,12 @@ class MCTSResult(NamedTuple):
 
 
 class RolloutDraws(NamedTuple):
-    """Every random number one rollout consumes."""
+    """Every random number one simulation's rollouts consume, for I trees
+    advanced in lockstep."""
 
-    delays: torch.Tensor  # f32[R, H] uniform in [0, max_delay)
-    faults: torch.Tensor  # f32[R, H] uniform in [0, max_fault)
-    noise: torch.Tensor  # f32[n_seeded_rows, H] standard normals
+    delays: torch.Tensor  # f32[I, R, H] uniform in [0, max_delay)
+    faults: torch.Tensor  # f32[I, R, H] uniform in [0, max_fault)
+    noise: torch.Tensor  # f32[I, n_seeded_rows, H] standard normals
 
 
 def init_tree(cfg: MCTSConfig) -> Tree:
@@ -138,31 +153,38 @@ def _ucb_scores(tree: Tree, node: int, vmin: np.float32, vmax: np.float32,
                     (q01 + explore).astype(np.float32))
 
 
-def draw_rollout(gen: torch.Generator, cfg: MCTSConfig, H: int,
-                 n_seeded: int) -> RolloutDraws:
-    """One rollout's draws from ``gen`` (on the generator's device)."""
-    dev = gen.device
-    R = cfg.rollouts
-    return RolloutDraws(
-        delays=torch.rand((R, H), generator=gen, device=dev) * cfg.max_delay,
-        faults=torch.rand((R, H), generator=gen, device=dev) * cfg.max_fault,
-        noise=torch.randn((n_seeded, H), generator=gen, device=dev),
-    )
+def draw_rollouts(gens, cfg: MCTSConfig, H: int,
+                  n_seeded: int) -> RolloutDraws:
+    """One simulation's draws for I trees, tree ``i`` from ``gens[i]``
+    (on the generators' device): its delays, faults, then noise."""
+    dev = gens[0].device
+    I, R = len(gens), cfg.rollouts
+    d = torch.empty((I, R, H), device=dev)
+    f = torch.empty((I, R, H), device=dev)
+    noise = torch.empty((I, n_seeded, H), device=dev)
+    for i, g in enumerate(gens):
+        torch.rand((R, H), generator=g, out=d[i])
+        torch.rand((R, H), generator=g, out=f[i])
+        torch.randn((n_seeded, H), generator=g, out=noise[i])
+    return RolloutDraws(d * cfg.max_delay, f * cfg.max_fault, noise)
 
 
 def _make_rollout(trace: TraceArrays, pairs, archive, failure_feats,
                   hint_order, values, H: int, cfg: MCTSConfig,
-                  weights: ScoreWeights, coin=None, seeds=None, seed=0):
-    """Returns ``rollout(sim, levels int32[tree_depth], draws=None) ->
-    (mean fitness, best fitness, best delays, best faults)``, device
-    tensors. Without ``draws`` simulation ``sim`` draws from the generator
-    of ``(seed, sim)``.
+                  weights: ScoreWeights, coin=None, seeds=None,
+                  tree_seeds: Sequence[int] = (0,)):
+    """Returns ``rollout(sim, levels int32[I, tree_depth], draws=None) ->
+    (mean fitness [I], best fitness [I], best delays [I, H], best faults
+    [I, H])``, device tensors, for the I trees of ``tree_seeds``: their
+    ``I * R`` rollout rows are scored in one call (one launch of the
+    pair-distance kernel). Without ``draws`` tree ``i``'s simulation
+    ``sim`` draws from the generator of ``(tree_seeds[i], sim)``.
 
     With ``cfg.max_fault > 0`` and a ``coin`` the random fault tables are
     scored, so the returned fault table is selected, not a draw.
     ``seeds f32[S, H]`` (S may be 0) are demonstration tables: up to half
-    of the rows complete the unpinned buckets from a noise-perturbed
-    seed."""
+    of each tree's rows complete the unpinned buckets from a
+    noise-perturbed seed."""
     device = archive.device
     n_seeds = 0 if seeds is None else seeds.shape[0]
     n_seeded = n_seeded_rows(cfg, n_seeds)
@@ -171,36 +193,81 @@ def _make_rollout(trace: TraceArrays, pairs, archive, failure_feats,
         rep = seeds.repeat(-(-n_seeded // n_seeds), 1)[:n_seeded]
     order = np.asarray(hint_order, np.int64)
     score_faults = cfg.max_fault > 0 and coin is not None
+    R = cfg.rollouts
 
     def rollout(sim: int, levels: np.ndarray,
                 draws: Optional[RolloutDraws] = None):
+        I = levels.shape[0]
         if draws is None:
-            draws = draw_rollout(generator_for(seed, sim, device), cfg, H,
-                                 n_seeded)
+            draws = draw_rollouts([generator_for(t, sim, device)
+                                   for t in tree_seeds], cfg, H, n_seeded)
         delays = draws.delays
         if n_seeded > 0:
             seeded = torch.clamp(
                 rep + draws.noise * (0.05 * cfg.max_delay), 0.0,
                 cfg.max_delay)
-            delays = torch.cat([seeded, delays[n_seeded:]])
+            delays = torch.cat([seeded, delays[:, n_seeded:]], dim=1)
         # pin the tree-assigned buckets: values and flags built on the
-        # host, one copy to the card
-        pin = np.zeros((2, H), np.float32)
-        pin[0, order] = values[np.maximum(levels, 0)]
-        pin[1, order] = levels >= 0
-        pin = torch.from_numpy(pin).to(device)
+        # host, one asynchronous copy to the card from pinned memory
+        val = np.zeros((I, H), np.float32)
+        on = np.zeros((I, H), np.float32)
+        val[:, order] = values[np.maximum(levels, 0)]
+        on[:, order] = levels >= 0
+        pin = torch.from_numpy(np.stack([val, on])[:, :, None])
+        if device.type == "cuda":
+            pin = pin.pin_memory().to(device, non_blocking=True)
         delays = torch.where(pin[1] > 0, pin[0], delays)
         fitness, _ = score_population_multi(
-            delays, trace, pairs, archive, failure_feats, weights,
-            faults=draws.faults if score_faults else None, coin=coin)
-        b = fitness.argmax()
-        return fitness.mean(), fitness[b], delays[b], draws.faults[b]
+            delays.reshape(I * R, H), trace, pairs, archive, failure_feats,
+            weights,
+            faults=draws.faults.reshape(I * R, H) if score_faults else None,
+            coin=coin)
+        fitness = fitness.view(I, R)
+        b = fitness.argmax(-1, keepdim=True)  # [I, 1]
+        rows = b[..., None].expand(I, 1, H)
+        return (fitness.mean(-1), fitness.gather(-1, b).squeeze(-1),
+                delays.gather(1, rows).squeeze(1),
+                draws.faults.gather(1, rows).squeeze(1))
 
     return rollout
 
 
-def mcts_search(
-    seed: int,
+def _select_expand(tree: Tree, vmin, vmax, cfg: MCTSConfig):
+    """Selection (descent by UCT until an unexpanded slot or maximum
+    depth) and expansion (one node, none at a leaf of maximum depth):
+    ``(tree, levels int32[tree_depth], leaf)``."""
+    Td = cfg.tree_depth
+    node, act = 0, NO_CHILD
+    levels = np.full((Td,), NO_CHILD, np.int32)
+    while tree.depth[node] < Td:
+        a = int(np.argmax(_ucb_scores(tree, node, vmin, vmax, cfg.c_uct)))
+        levels[tree.depth[node]] = a
+        child = int(tree.children[node, a])
+        if child == NO_CHILD:
+            act = a
+            break
+        node = child
+    leaf = node
+    if act != NO_CHILD:
+        leaf = tree.n_nodes
+        tree.parent[leaf] = node
+        tree.action[leaf] = act
+        tree.depth[leaf] = tree.depth[node] + 1
+        tree.children[node, act] = leaf
+        tree = tree._replace(n_nodes=leaf + 1)
+    return tree, levels, leaf
+
+
+def _backprop(tree: Tree, leaf: int, value: np.float32) -> None:
+    n = leaf
+    while n != NO_CHILD:
+        tree.visit[n] += np.float32(1.0)
+        tree.value_sum[n] += value
+        n = int(tree.parent[n])
+
+
+def mcts_search_trees(
+    tree_seeds: Sequence[int],
     trace: TraceArrays,  # stacked [T, L] (or one [L] trace)
     pairs: torch.Tensor,  # [K, 2]
     archive: torch.Tensor,  # f32[A, K]
@@ -211,9 +278,13 @@ def mcts_search(
     weights: ScoreWeights = ScoreWeights(),
     coin: Optional[torch.Tensor] = None,  # f32[H] fault coin
     seeds: Optional[torch.Tensor] = None,  # f32[S, H] demonstrations
-) -> MCTSResult:
-    """One full search of ``cfg.simulations`` simulations on the device
-    of ``archive``; the same inputs and ``seed`` give the same result."""
+) -> List[MCTSResult]:
+    """One full search of ``cfg.simulations`` simulations for each of the
+    independent trees of ``tree_seeds``, on the device of ``archive``,
+    advanced in lockstep: a simulation selects and expands every tree on
+    the host, scores all the trees' rollouts in one batch, and reads
+    their means back in one sync. Tree ``i`` grows exactly as a search of
+    its own seed alone."""
     if coin is None and cfg.max_fault > 0:
         raise ValueError(
             "fault search is enabled (max_fault > 0) but no fault coin "
@@ -223,57 +294,87 @@ def mcts_search(
     trace = normalize_fault_trace(trace, coin)
     if torch.is_tensor(hint_order):
         hint_order = hint_order.cpu().numpy()
-    Td = cfg.tree_depth
+    I = len(tree_seeds)
     rollout = _make_rollout(trace, pairs, archive, failure_feats,
                             hint_order, level_values(cfg), H, cfg, weights,
-                            coin=coin, seeds=seeds, seed=seed)
-    tree = init_tree(cfg)
-    vmin, vmax = np.float32(np.inf), np.float32(-np.inf)
+                            coin=coin, seeds=seeds, tree_seeds=tree_seeds)
+    trees = [init_tree(cfg) for _ in range(I)]
+    vmin = np.full((I,), np.inf, np.float32)
+    vmax = np.full((I,), -np.inf, np.float32)
     device = archive.device
-    best_fit = torch.full((), float("-inf"), device=device)
-    best_d = torch.zeros((H,), device=device)
-    best_f = torch.zeros((H,), device=device)
+    best_fit = torch.full((I,), float("-inf"), device=device)
+    best_d = torch.zeros((I, H), device=device)
+    best_f = torch.zeros((I, H), device=device)
+    levels = np.empty((I, cfg.tree_depth), np.int32)
+    leaves = [0] * I
     for sim in range(cfg.simulations):
-        # selection: descend by UCT until an unexpanded slot or max depth
-        node, act = 0, NO_CHILD
-        levels = np.full((Td,), NO_CHILD, np.int32)
-        while tree.depth[node] < Td:
-            a = int(np.argmax(_ucb_scores(tree, node, vmin, vmax,
-                                          cfg.c_uct)))
-            levels[tree.depth[node]] = a
-            child = int(tree.children[node, a])
-            if child == NO_CHILD:
-                act = a
-                break
-            node = child
-        # expansion: one node, none at a leaf of maximum depth
-        leaf = node
-        if act != NO_CHILD:
-            leaf = tree.n_nodes
-            tree.parent[leaf] = node
-            tree.action[leaf] = act
-            tree.depth[leaf] = tree.depth[node] + 1
-            tree.children[node, act] = leaf
-            tree = tree._replace(n_nodes=leaf + 1)
+        for i in range(I):
+            trees[i], levels[i], leaves[i] = _select_expand(
+                trees[i], vmin[i], vmax[i], cfg)
         mean_t, roll_fit, roll_d, roll_f = rollout(sim, levels)
-        mean_v = np.float32(mean_t.item())  # the simulation's one sync
-        n = leaf
-        while n != NO_CHILD:  # backprop to the root
-            tree.visit[n] += np.float32(1.0)
-            tree.value_sum[n] += mean_v
-            n = int(tree.parent[n])
-        vmin, vmax = min(vmin, mean_v), max(vmax, mean_v)
+        means = mean_t.cpu().numpy()  # the simulation's one sync
+        for i in range(I):
+            mean_v = np.float32(means[i])
+            _backprop(trees[i], leaves[i], mean_v)
+            vmin[i], vmax[i] = min(vmin[i], mean_v), max(vmax[i], mean_v)
         improved = roll_fit > best_fit
         best_fit = torch.where(improved, roll_fit, best_fit)
-        best_d = torch.where(improved, roll_d, best_d)
-        best_f = torch.where(improved, roll_f, best_f)
-    root = tree.children[0]
-    return MCTSResult(
-        best_fitness=best_fit,
-        best_delays=best_d,
-        best_faults=best_f,
-        tree_visits=tree.visit.copy(),
-        root_child_visits=tree.visit[np.maximum(root, 0)]
-        * (root != NO_CHILD),
-        tree=tree,
-    )
+        best_d = torch.where(improved[:, None], roll_d, best_d)
+        best_f = torch.where(improved[:, None], roll_f, best_f)
+    out = []
+    for i, tree in enumerate(trees):
+        root = tree.children[0]
+        out.append(MCTSResult(
+            best_fitness=best_fit[i],
+            best_delays=best_d[i],
+            best_faults=best_f[i],
+            tree_visits=tree.visit.copy(),
+            root_child_visits=tree.visit[np.maximum(root, 0)]
+            * (root != NO_CHILD),
+            tree=tree,
+        ))
+    return out
+
+
+def mcts_search(seed: int, trace: TraceArrays, pairs: torch.Tensor,
+                archive: torch.Tensor, failure_feats: torch.Tensor,
+                hint_order, H: int, cfg: MCTSConfig = MCTSConfig(),
+                weights: ScoreWeights = ScoreWeights(),
+                coin: Optional[torch.Tensor] = None,
+                seeds: Optional[torch.Tensor] = None) -> MCTSResult:
+    """One full search of ``cfg.simulations`` simulations on the device
+    of ``archive``; the same inputs and ``seed`` give the same result."""
+    return mcts_search_trees([seed], trace, pairs, archive, failure_feats,
+                             hint_order, H, cfg, weights, coin=coin,
+                             seeds=seeds)[0]
+
+
+def parallel_mcts(seed: int, mesh: IslandMesh, trace: TraceArrays,
+                  pairs: torch.Tensor, archive: torch.Tensor,
+                  failure_feats: torch.Tensor, hint_order, H: int,
+                  cfg: MCTSConfig = MCTSConfig(),
+                  weights: ScoreWeights = ScoreWeights(),
+                  coin: Optional[torch.Tensor] = None,
+                  seeds: Optional[torch.Tensor] = None):
+    """Root-parallel MCTS, the port of the reference's
+    ``make_parallel_mcts``: one tree per island of ``mesh``, the tree at
+    coordinates ``c`` seeded from ``(seed, c)`` (all-zero coordinates:
+    ``seed`` itself), each shard's trees in lockstep on its device (the
+    shards one after another), then the row-major argmax of the trees'
+    bests, the first tree on ties, gathered across processes on a
+    distributed mesh. Returns ``(fitness, delays, faults)`` on the
+    primary device."""
+    inputs = replicate(mesh, trace, pairs, archive, failure_feats, coin,
+                       seeds)
+    cands = []
+    for sh in mesh.shards:
+        tr, pr, ar, fl, cn, sd = inputs[sh.device]
+        res = mcts_search_trees(
+            [fold_coords(seed, mesh.coords(g))
+             for g in range(sh.start, sh.start + sh.islands)],
+            tr, pr, ar, fl, hint_order, H, cfg, weights, coin=cn, seeds=sd)
+        fits = torch.stack([r.best_fitness for r in res])
+        j = fits.argmax()
+        cands.append((fits[j], torch.stack([r.best_delays for r in res])[j],
+                      torch.stack([r.best_faults for r in res])[j]))
+    return global_best(cands, mesh)

@@ -3,8 +3,9 @@
 
 Owns the precedence pairs and the novelty/failure archives (host ring
 buffers with device copies written in place), keeps the reference traces
-on the device keyed by content, runs generations on one card, and
-extracts the delay table for the control plane to replay: the best seen,
+on the device keyed by content, runs generations over a mesh of islands
+(``parallel/mesh.py``; one island on one card by default), and extracts
+the delay table for the control plane to replay: the best seen,
 or, with ``surrogate_topk > 0`` once the surrogate has enough labeled
 runs of both outcomes, the surrogate's pick among the evolved
 population's top-k by fitness.
@@ -37,9 +38,9 @@ import numpy as np
 import torch
 
 from namazu_tpu_torch import convert
-from namazu_tpu_torch.device import DeviceLike, resolve_device
-from namazu_tpu_torch.models.ga import GAConfig
-from namazu_tpu_torch.models.mcts import MCTSConfig, mcts_search
+from namazu_tpu_torch.device import DeviceLike
+from namazu_tpu_torch.models.ga import GAConfig, Population
+from namazu_tpu_torch.models.mcts import MCTSConfig, parallel_mcts
 from namazu_tpu_torch.models.surrogate import RewardSurrogate
 from namazu_tpu_torch.ops import trace_encoding as te
 from namazu_tpu_torch.ops.schedule import (
@@ -48,12 +49,16 @@ from namazu_tpu_torch.ops.schedule import (
     score_population_multi,
     trace_features,
 )
+from namazu_tpu_torch.parallel.distributed import hier_rings
 from namazu_tpu_torch.parallel.islands import (
     fused_step,
     generation_seed,
     init_island_state,
     island_step,
+    local_population,
+    shard_population,
 )
+from namazu_tpu_torch.parallel.mesh import IslandMesh, make_mesh
 
 
 class SearchConfig(NamedTuple):
@@ -62,8 +67,8 @@ class SearchConfig(NamedTuple):
     K: int = te.DEFAULT_K  # feature pairs
     archive_size: int = 512  # novelty archive capacity
     failure_size: int = 64  # failure archive capacity
-    population: int = 4096  # genomes (one island on one card)
-    migrate_k: int = 8  # ring migration: unused with one island
+    population: int = 4096  # genomes over every island
+    migrate_k: int = 8  # genomes a ring migration moves
     seed: int = 0
     ga: GAConfig = GAConfig()
     weights: ScoreWeights = ScoreWeights()
@@ -237,18 +242,29 @@ def _unsupported(what: str) -> NotImplementedError:
         f"namazu_tpu_torch: {what} is not ported yet; use namazu_tpu")
 
 
+def _mesh_for(mesh: Optional[IslandMesh], n_devices: Optional[int],
+              device: DeviceLike) -> IslandMesh:
+    """The search's mesh: ``mesh``, else ``n_devices`` islands by
+    :func:`make_mesh` on ``device`` (one island by default)."""
+    if mesh is not None:
+        return mesh
+    return make_mesh(1 if n_devices is None else n_devices, device=device)
+
+
 class SearchBase:
     """What every search backend shares: the precedence pairs, the
     novelty/failure archives (host rings with device copies written in
     place), the fault coin, the device-resident reference traces and the
     backend-tagged ``.npz`` checkpoint. ``device`` defaults to
     ``"cuda"``; without a card, pass ``device="cpu"`` (the scorer then
-    takes the pair-distance kernel's plain version)."""
+    takes the pair-distance kernel's plain version). The archives and
+    traces live on the mesh's primary device."""
 
     BACKEND = "base"
 
-    def __init__(self, cfg: SearchConfig, device: DeviceLike = "cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, cfg: SearchConfig, mesh: IslandMesh):
+        self.mesh = mesh
+        self.device = mesh.device
         self.cfg = cfg
         self.pairs = te.sample_pairs(cfg.K, cfg.H, cfg.seed)
         # neutral (0.5) features = "no information"; rings overwrite oldest
@@ -453,8 +469,11 @@ class SearchBase:
 
 
 class ScheduleSearch(SearchBase):
-    """The GA backend on one card: one island of ``cfg.population``
-    genomes."""
+    """The GA backend: ``cfg.population`` genomes (rounded down to a
+    multiple of the islands) over the islands of ``mesh``, or of
+    ``make_mesh(n_devices)`` on ``device``; one island on one card by
+    default. A mesh with an ``h`` axis migrates over :func:`hier_rings`,
+    else over one ring on ``i``."""
 
     BACKEND = "ga"
 
@@ -463,13 +482,22 @@ class ScheduleSearch(SearchBase):
     MIN_CLASS_EXAMPLES = 3
 
     def __init__(self, cfg: SearchConfig = SearchConfig(),
+                 mesh: Optional[IslandMesh] = None,
+                 n_devices: Optional[int] = None,
                  device: DeviceLike = "cuda"):
-        super().__init__(cfg, device)
-        self.population = cfg.population
+        super().__init__(cfg, _mesh_for(mesh, n_devices, device))
+        n_islands = self.mesh.n_islands
+        self.population = max(1, cfg.population // n_islands) * n_islands
+        if "h" in self.mesh.axis_names:
+            self._rings = hier_rings(migrate_k=cfg.migrate_k,
+                                     migrate_every=cfg.migrate_every,
+                                     dcn_every=cfg.dcn_migrate_every)
+        else:
+            self._rings = (("i", cfg.migrate_k, cfg.migrate_every),)
         self.last_fit_curve: List[float] = []
         self._surrogate: Optional[RewardSurrogate] = None
         self._state = init_island_state(cfg.seed + 1, self.population,
-                                        cfg.H, cfg.ga, self.device)
+                                        cfg.H, cfg.ga, mesh=self.mesh)
 
     def _reset_best(self) -> None:
         self._state = self._state._replace(best_fitness=torch.full(
@@ -478,18 +506,30 @@ class ScheduleSearch(SearchBase):
     def seed_population(self, delay_tables) -> None:
         """Write imitation genomes (recorded failures' delay tables,
         clipped to ``max_delay``) into the population before evolving,
-        one every ``P // n`` rows. The device population is written in
-        place, not reallocated."""
-        if len(delay_tables) == 0:
+        one every ``P // n`` rows of the whole population, so every
+        island gets tables. The device population is written in place,
+        not reallocated. A no-op on a mesh over several processes, as in
+        the reference: per-process seeding would make the processes'
+        populations diverge."""
+        if len(delay_tables) == 0 or self.mesh.world > 1:
             return
         seeds = np.clip(
             np.stack([np.asarray(t, np.float32) for t in delay_tables]),
             0.0, self.cfg.ga.max_delay)
         n = min(seeds.shape[0], self.population)
         stride = max(1, self.population // n)
-        idx = [min(i * stride, self.population - 1) for i in range(n)]
-        self._state.pop.delays[torch.tensor(idx, device=self.device)] = \
-            torch.from_numpy(seeds[:n]).to(self.device)
+        idx = np.array([min(i * stride, self.population - 1)
+                        for i in range(n)])
+        Pi = self.population // self.mesh.n_islands
+        parts = ([self._state.pop.delays]
+                 if torch.is_tensor(self._state.pop.delays)
+                 else self._state.pop.delays)
+        for sh, delays in zip(self.mesh.shards, parts):
+            lo = sh.start * Pi
+            mine = (idx >= lo) & (idx < lo + delays.shape[0])
+            if mine.any():
+                delays[torch.from_numpy(idx[mine] - lo).to(sh.device)] = \
+                    torch.from_numpy(seeds[:n][mine]).to(sh.device)
 
     def novelty_scale(self) -> float:
         """Annealed multiplier on ``weights.novelty``: 1.0 while the
@@ -537,7 +577,7 @@ class ScheduleSearch(SearchBase):
             self._state, fit = island_step(
                 self._state, self._seed, traces, pairs, archive, failures,
                 self.cfg.ga, self.cfg.weights, novelty_scale=nov_scale,
-                coin=self._dev_coin)
+                coin=self._dev_coin, mesh=self.mesh, rings=self._rings)
             fits.append(fit)
         return [float(v) for v in torch.stack(fits).tolist()] if fits else []
 
@@ -556,7 +596,8 @@ class ScheduleSearch(SearchBase):
             self._state, fit_hist = fused_step(
                 self._state, g, self._seed, traces, pairs, archive,
                 failures, self.cfg.ga, self.cfg.weights,
-                novelty_scale=nov_scale, coin=self._dev_coin)
+                novelty_scale=nov_scale, coin=self._dev_coin,
+                mesh=self.mesh, rings=self._rings)
             done += g
             if pending is not None:
                 self._drain(pending, curve)
@@ -582,9 +623,18 @@ class ScheduleSearch(SearchBase):
             done.synchronize()
         curve.extend(float(v) for v in host.tolist())
 
+    def _full_population(self) -> Population:
+        """Every island's genomes, flat ``[P, H]`` on the primary device;
+        on a mesh over several processes gathered from all of them."""
+        pop = local_population(self._state.pop, self.mesh)
+        if self.mesh.distributed:
+            pop = Population(*(self.mesh.all_gather(x).flatten(0, 1)
+                               for x in pop))
+        return pop
+
     def _fetch_population(self):
         """The population as host numpy arrays ``(delays, faults)``."""
-        pop = self._state.pop
+        pop = self._full_population()
         return pop.delays.cpu().numpy(), pop.faults.cpu().numpy()
 
     # -- surrogate ---------------------------------------------------------
@@ -613,7 +663,7 @@ class ScheduleSearch(SearchBase):
         """``(top-k row indices, fitness [P], feats [P, T, K])`` of the
         current population, re-scored once, its fault half included."""
         k = min(self.cfg.surrogate_topk, self.population)
-        pop = self._state.pop
+        pop = self._full_population()
         fitness, feats = score_population_multi(
             pop.delays, traces, pairs, archive, failures, self.cfg.weights,
             faults=None if self._dev_coin is None else pop.faults,
@@ -634,7 +684,7 @@ class ScheduleSearch(SearchBase):
             traces, pairs, archive, failures, nov_scale)
         cand_feats = feats[top].mean(dim=1).cpu().numpy()
         winner = int(top[int(np.argmax(surrogate.predict(cand_feats)))])
-        pop = self._state.pop
+        pop = self._full_population()
         return BestSchedule(
             delays=pop.delays[winner].cpu().numpy(),
             faults=pop.faults[winner].cpu().numpy(),
@@ -651,7 +701,8 @@ class ScheduleSearch(SearchBase):
     # -- persistence -------------------------------------------------------
 
     def _state_dict(self) -> dict:
-        flat = convert.state_to_jax(self._state)
+        flat = convert.state_to_jax(self._state._replace(
+            pop=self._full_population()))
         if self._surrogate is not None:
             flat["surrogate_params"] = convert.surrogate_flat_from_state(
                 self._surrogate.state_dict())
@@ -660,9 +711,13 @@ class ScheduleSearch(SearchBase):
     def _restore_state(self, arrays: dict) -> None:
         state = convert.island_state_from_jax(arrays, self.device)
         if tuple(state.pop.delays.shape) != (self.population, self.cfg.H):
-            # a population/genome-width mismatch keeps the fresh
+            # a population/genome-width mismatch (another config, or a
+            # mesh whose islands do not divide it) keeps the fresh
             # population; archives, best tables and the key restore
             state = state._replace(pop=self._state.pop)
+        else:
+            state = state._replace(pop=shard_population(state.pop,
+                                                        self.mesh))
         self._state = state
         if "surrogate_params" in arrays:
             # the optimizer restarts, as in the reference; weights of
@@ -681,7 +736,8 @@ class ScheduleSearch(SearchBase):
 class MCTSSearch(SearchBase):
     """The MCTS backend (``models/mcts.py``) behind the GA's driver API,
     so the ``tpu_search`` policy's ``search_backend = "mcts"`` is served
-    by the same sidecar. One tree per search on one card."""
+    by the same sidecar: root-parallel, one tree an island of ``mesh``
+    (of ``make_mesh(n_devices)`` on ``device``; one tree by default)."""
 
     BACKEND = "mcts"
 
@@ -690,8 +746,10 @@ class MCTSSearch(SearchBase):
 
     def __init__(self, cfg: SearchConfig = SearchConfig(),
                  mcts_cfg: Optional[MCTSConfig] = None,
+                 mesh: Optional[IslandMesh] = None,
+                 n_devices: Optional[int] = None,
                  device: DeviceLike = "cuda"):
-        super().__init__(cfg, device)
+        super().__init__(cfg, _mesh_for(mesh, n_devices, device))
         self.mcts_cfg = mcts_cfg if mcts_cfg is not None else MCTSConfig(
             max_delay=cfg.ga.max_delay, max_fault=cfg.ga.max_fault)
         if self.mcts_cfg.max_fault > 0 and self._coin is None:
@@ -741,8 +799,8 @@ class MCTSSearch(SearchBase):
         return generation_seed(s, 1)
 
     def run(self, encoded, generations: int = 1) -> BestSchedule:
-        """Run ``max(1, generations // 64)`` independent tree searches of
-        ``mcts_cfg.simulations`` simulations each (the GA's
+        """Run ``max(1, generations // 64)`` independent root-parallel
+        searches of ``mcts_cfg.simulations`` simulations a tree (the GA's
         ``generations`` knob maps onto the simulation budget); returns the
         best schedule seen so far (monotonic across calls)."""
         encs = encoded if isinstance(encoded, (list, tuple)) else [encoded]
@@ -753,15 +811,15 @@ class MCTSSearch(SearchBase):
                  torch.from_numpy(self._seed_tables).to(self.device))
         searches = max(1, generations // 64)
         for _ in range(searches):
-            res = mcts_search(self._next_search_seed(), traces, pairs,
-                              archive, failures, hint_order, self.cfg.H,
-                              self.mcts_cfg, self.cfg.weights,
-                              coin=self._dev_coin, seeds=seeds)
-            fit = float(res.best_fitness)
+            fit, d, f = parallel_mcts(
+                self._next_search_seed(), self.mesh, traces, pairs,
+                archive, failures, hint_order, self.cfg.H, self.mcts_cfg,
+                self.cfg.weights, coin=self._dev_coin, seeds=seeds)
+            fit = float(fit)
             if fit > self._best_fitness:
                 self._best_fitness = fit
-                self._best_delays = res.best_delays.cpu().numpy()
-                self._best_faults = res.best_faults.cpu().numpy()
+                self._best_delays = d.cpu().numpy()
+                self._best_faults = f.cpu().numpy()
         self.last_run_seconds = time.perf_counter() - t0
         self.generations_run += searches * self.mcts_cfg.simulations
         return self.best()

@@ -1,21 +1,41 @@
-"""The island step on one card: the port of
-``namazu_tpu/parallel/islands.py`` for a single island.
+"""The island model on the card: the port of
+``namazu_tpu/parallel/islands.py``.
 
-One generation scores the population, takes the island's best, evolves
-one GA generation and updates the best-so-far. On one device the
-reference's mesh has one island, so no migration runs and the global
-best is the island's best; more islands, ring migration and several
-cards are later slices of the port.
+One generation, on every shard of the mesh (``parallel/mesh.py``): score
+every row of the shard in one call (scoring is per row, so this equals
+scoring each island alone), take each island's best, evolve one GA
+generation per island (``models/ga.py`` over a leading island axis),
+then migrate ring by ring and agree on the global best.
 
-Bit-exactness contract, as in the reference: the random numbers of
-generation ``gen`` come from a generator seeded from ``(seed, gen)``
-(the counterpart of ``fold_in(base_key, gen)``), so G generations of
+* **Migration**, as the reference's ``_make_local_step``: the migrants of
+  a ring are an island's leading ``kk`` rows of the new population
+  (elites first), ``kk = min(k, max(0, Pi - n_elite - offset))``; they
+  land at rows ``[Pi - offset - kk, Pi - offset)`` of the next island
+  along the ring's axis, each later ring taking the next tail slice, so
+  an island's own elites are never overwritten. A ring runs only when its
+  axis is longer than 1, ``kk > 0`` and ``gen % every == 0`` (``gen``
+  counted before the step). Inside a shard a ring is a few row-slice
+  copies; between shards it copies ``kk x H`` rows to the neighbour
+  shard's device (a cross-device ``copy`` orders itself after both
+  devices' current streams); across processes (the first axis of a
+  distributed mesh) it is one ``all_gather`` of every island's migrants.
+* **Global best**: the argmax over every island in row-major order, the
+  first island on ties, as the reference's axis-by-axis ``all_gather``
+  and ``argmax``; it stays on the device.
+* **Draws**: island ``c`` of generation ``gen`` draws from a generator
+  seeded from ``(seed, gen, c)`` (the counterpart of
+  ``fold_in(fold_in(base_key, gen), axis_index)`` over every axis), so
+  the same islands give the same populations however they are spread
+  over shards, cards and processes; all-zero coordinates keep the
+  one-island stream of ``generation_seed(seed, gen)``.
+
+Bit-exactness contract, as in the reference: G generations of
 :func:`fused_step` equal G calls of :func:`island_step` bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,14 +53,17 @@ from namazu_tpu_torch.ops.schedule import (
     normalize_fault_trace,
     score_population_multi,
 )
+from namazu_tpu_torch.parallel.mesh import IslandMesh
 
 _MASK64 = (1 << 64) - 1
 
 
 class IslandState(NamedTuple):
-    pop: Population  # delays/faults f32[P, H]
+    # delays/faults f32[P, H], row-major by island; on a mesh of several
+    # shards, a tuple of each local shard's [rows, H] block
+    pop: Population
     gen: int  # generations evolved so far (host counter)
-    best_fitness: torch.Tensor  # f32 scalar
+    best_fitness: torch.Tensor  # f32 scalar, on the mesh's primary device
     best_delays: torch.Tensor  # f32[H]
     best_faults: torch.Tensor  # f32[H]
 
@@ -55,41 +78,185 @@ def generation_seed(seed: int, gen: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
-def generator_for(seed: int, gen: int,
-                  device: DeviceLike = "cuda") -> torch.Generator:
+def fold_coords(seed: int, coords: Sequence[int] = ()) -> int:
+    """The seed of the island (or MCTS tree) at mesh coordinates
+    ``coords`` under ``seed``: each coordinate folded in turn, the
+    counterpart of ``fold_in(key, axis_index)`` over every axis. All-zero
+    coordinates keep ``seed`` itself."""
+    if not any(coords):
+        return seed
+    for c in coords:
+        seed = generation_seed(seed, c)
+    return seed
+
+
+def generator_for(seed: int, gen: int, device: DeviceLike = "cuda",
+                  coords: Sequence[int] = ()) -> torch.Generator:
     g = torch.Generator(device=resolve_device(device))
-    g.manual_seed(generation_seed(seed, gen))
+    g.manual_seed(fold_coords(generation_seed(seed, gen), coords))
     return g
 
 
+def one_island(device: DeviceLike) -> IslandMesh:
+    return IslandMesh(("i",), (1,), [device])
+
+
+def _parts(pop: Population) -> List[Population]:
+    """The flat ``[rows, H]`` block of each local shard."""
+    if torch.is_tensor(pop.delays):
+        return [pop]
+    return [Population(d, f) for d, f in zip(pop.delays, pop.faults)]
+
+
+def _join(parts: List[Population]) -> Population:
+    if len(parts) == 1:
+        return parts[0]
+    return Population(tuple(p.delays for p in parts),
+                      tuple(p.faults for p in parts))
+
+
+def shard_population(pop: Population, mesh: IslandMesh) -> Population:
+    """A flat population of every island (``[P, H]``, row-major) as this
+    process's shards: one tensor for one shard, else a tuple of blocks,
+    each on its shard's device."""
+    Pi = pop.delays.shape[0] // mesh.n_islands
+    parts = [Population(*(x[s.start * Pi:(s.start + s.islands) * Pi]
+                          .to(s.device) for x in pop))
+             for s in mesh.shards]
+    return _join(parts)
+
+
+def local_population(pop: Population, mesh: IslandMesh) -> Population:
+    """This process's islands as one flat ``[rows, H]`` population on the
+    mesh's primary device."""
+    parts = _parts(pop)
+    if len(parts) == 1:
+        return parts[0]
+    return Population(*(torch.cat([x.to(mesh.device) for x in xs])
+                        for xs in zip(*parts)))
+
+
 def init_island_state(seed: int, P: int, H: int, cfg: GAConfig,
-                      device: DeviceLike = "cuda") -> IslandState:
-    device = resolve_device(device)
-    pop = init_population(generator_for(seed, -1, device), P, H, cfg)
+                      device: DeviceLike = "cuda",
+                      mesh: Optional[IslandMesh] = None) -> IslandState:
+    """A uniform population of ``P`` genomes drawn on the primary device
+    (so the same for every layout of the islands) and split over the
+    mesh's shards (one island on ``device`` without a mesh)."""
+    mesh = mesh if mesh is not None else one_island(device)
+    dev = mesh.device
+    pop = init_population(generator_for(seed, -1, dev), P, H, cfg)
     return IslandState(
-        pop=pop,
+        pop=shard_population(pop, mesh),
         gen=0,
-        best_fitness=torch.full((), float("-inf"), device=device),
-        best_delays=torch.zeros((H,), device=device),
-        best_faults=torch.zeros((H,), device=device),
+        best_fitness=torch.full((), float("-inf"), device=dev),
+        best_delays=torch.zeros((H,), device=dev),
+        best_faults=torch.zeros((H,), device=dev),
     )
 
 
-def island_step(state: IslandState, seed: int, traces: TraceArrays,
-                pairs: torch.Tensor, archive: torch.Tensor,
-                failures: torch.Tensor, cfg: GAConfig,
-                weights: ScoreWeights = ScoreWeights(),
-                novelty_scale=None,
-                mutation_bias: Optional[torch.Tensor] = None,
-                draws: Optional[GADraws] = None,
-                coin: Optional[torch.Tensor] = None
-                ) -> Tuple[IslandState, torch.Tensor]:
-    """One generation: score -> island best -> GA -> best update.
-    Returns the new state and this generation's best fitness (a device
-    scalar; nothing here waits for the device). With the fault ``coin
-    f32[H]`` the population's fault half is scored; ``cfg.max_fault > 0``
-    without one raises ``ValueError``, as in the reference (the fault
-    half would evolve unscored)."""
+def _norm_rings(rings: Sequence[Tuple]) -> Tuple[Tuple[str, int, int], ...]:
+    """Rings as ``(axis, k, every)``; 2-tuples get ``every=1``."""
+    out = []
+    for r in rings:
+        ax, k, every = r if len(r) == 3 else (*r, 1)
+        out.append((str(ax), int(k), max(1, int(every))))
+    return tuple(out)
+
+
+def ring_plan(mesh: IslandMesh, rings: Sequence[Tuple], rows: int,
+              cfg: GAConfig) -> List[Tuple[int, int, int, int]]:
+    """``(axis number, kk, landing offset from the tail, every)`` of each
+    ring that moves rows, in order; counts clamp so the landing region
+    stays clear of the elite rows."""
+    n_elite = max(1, int(rows * cfg.elite_frac))
+    offset, plan = 0, []
+    for ax, k, every in _norm_rings(rings):
+        kk = min(k, max(0, rows - n_elite - offset))
+        if mesh.shape[ax] > 1 and kk > 0:
+            plan.append((mesh.axis_names.index(ax), kk, offset, every))
+            offset += kk
+    return plan
+
+
+def _runs(mesh: IslandMesh, axis: int, shard: int, gathered: bool):
+    """Where the migrants that land on a shard's islands come from, as
+    ``(source, start, stop)`` slices in the shard's island order: the
+    source is a local shard's index, or ``"all"`` for every island's
+    migrants gathered across processes (indexed by global island)."""
+    key = (axis, shard, gathered)
+    runs = mesh.route_cache.get(key)
+    if runs is None:
+        sh = mesh.shards[shard]
+        runs = []
+        for g in range(sh.start, sh.start + sh.islands):
+            src = mesh.predecessor(g, axis)
+            where, j = ("all", src) if gathered else mesh.shard_of(src)
+            if runs and runs[-1][0] == where and runs[-1][2] == j:
+                runs[-1] = (where, runs[-1][1], j + 1)
+            else:
+                runs.append((where, j, j + 1))
+        mesh.route_cache[key] = runs
+    return runs
+
+
+def _incoming(sources: dict, runs, device) -> torch.Tensor:
+    return torch.cat([sources[w][a:b].to(device) for w, a, b in runs])
+
+
+def _migrate(parts: List[Population], mesh: IslandMesh, plan, gen: int
+             ) -> None:
+    """Ring migration in place on the shards' ``[I_s, Pi, H]`` new
+    populations. Every shard's incoming rows of a ring are copied out
+    before any is written, so a ring's migrants are the rows before its
+    own landing (the reference's ``ppermute``); a later ring reads the
+    population after the earlier rings' landings."""
+    Pi = parts[0].delays.shape[1]
+    for axis, kk, off, every in plan:
+        if gen % every:
+            continue
+        dst = Pi - off - kk
+        if mesh.distributed and axis == 0:  # the ring crosses processes
+            mine = torch.cat([torch.stack((p.delays[:, :kk],
+                                           p.faults[:, :kk]), 1)
+                              .to(mesh.device) for p in parts])
+            sources = {"all": mesh.all_gather(mine).flatten(0, 1)}
+            incoming = [_incoming(sources, _runs(mesh, axis, t, True),
+                                  sh.device).unbind(1)
+                        for t, sh in enumerate(mesh.shards)]
+        else:
+            src_d = {t: p.delays[:, :kk] for t, p in enumerate(parts)}
+            src_f = {t: p.faults[:, :kk] for t, p in enumerate(parts)}
+            incoming = []
+            for t, sh in enumerate(mesh.shards):
+                runs = _runs(mesh, axis, t, False)
+                incoming.append((_incoming(src_d, runs, sh.device),
+                                 _incoming(src_f, runs, sh.device)))
+        for p, (inc_d, inc_f) in zip(parts, incoming):
+            p.delays[:, dst:dst + kk].copy_(inc_d)
+            p.faults[:, dst:dst + kk].copy_(inc_f)
+
+
+def global_best(cands, mesh: IslandMesh):
+    """``(fitness, delays, faults)`` of the best of the local candidates
+    (one a shard, in island order) and, on a distributed mesh, of every
+    process's: the first on ties, on the primary device."""
+    fit, d, f = cands[0]
+    if len(cands) > 1:
+        dev = mesh.device
+        fits = torch.stack([c[0].to(dev) for c in cands])
+        j = fits.argmax()
+        fit = fits[j]
+        d = torch.stack([c[1].to(dev) for c in cands])[j]
+        f = torch.stack([c[2].to(dev) for c in cands])[j]
+    if mesh.distributed:
+        H = d.shape[0]
+        every = mesh.all_gather(torch.cat([fit.reshape(1), d, f]))
+        row = every[every[:, 0].argmax()]
+        fit, d, f = row[0], row[1:1 + H], row[1 + H:]
+    return fit, d, f
+
+
+def _prepare(traces: TraceArrays, coin, cfg: GAConfig) -> TraceArrays:
     if coin is None and cfg.max_fault > 0:
         raise ValueError(
             "fault search is enabled (max_fault > 0) but no fault coin "
@@ -98,28 +265,91 @@ def island_step(state: IslandState, seed: int, traces: TraceArrays,
     if traces.hint_ids.dim() == 1:  # single trace -> batch of one
         traces = TraceArrays(*(None if x is None else x[None]
                                for x in traces))
-    traces = normalize_fault_trace(traces, coin)
-    pop = state.pop
-    fitness, _ = score_population_multi(
-        pop.delays, traces, pairs, archive, failures, weights,
-        faults=None if coin is None else pop.faults, coin=coin,
-        novelty_scale=novelty_scale)
-    best_i = fitness.argmax()
-    fit = fitness[best_i]
-    gen = None if draws is not None else generator_for(
-        seed, state.gen, pop.delays.device)
-    new_pop = ga_generation(gen, pop, fitness, cfg,
-                            delay_bias=mutation_bias, draws=draws)
+    return normalize_fault_trace(traces, coin)
+
+
+def replicate(mesh: IslandMesh, *tensors) -> dict:
+    """``{device: tensors on it}`` for every shard's device (``None`` and
+    :class:`TraceArrays` fields carried through); on the primary device
+    the tensors themselves."""
+    def to(x, dev):
+        if x is None or not isinstance(x, (torch.Tensor, tuple)):
+            return x
+        if isinstance(x, tuple):
+            return type(x)(*(to(y, dev) for y in x))
+        return x.to(dev)
+
+    return {sh.device: tuple(to(x, sh.device) for x in tensors)
+            for sh in mesh.shards}
+
+
+def _step(state: IslandState, seed: int, inputs: dict, cfg: GAConfig,
+          weights: ScoreWeights, novelty_scale, mesh: IslandMesh, rings,
+          draws) -> Tuple[IslandState, torch.Tensor]:
+    parts = _parts(state.pop)
+    H = parts[0].delays.shape[1]
+    Pi = parts[0].delays.shape[0] // mesh.shards[0].islands
+    if isinstance(draws, GADraws):
+        draws = [draws]
+    new_parts, cands = [], []
+    for k, (sh, p) in enumerate(zip(mesh.shards, parts)):
+        traces, pairs, archive, failures, coin, bias = inputs[sh.device]
+        fitness, _ = score_population_multi(
+            p.delays, traces, pairs, archive, failures, weights,
+            faults=None if coin is None else p.faults, coin=coin,
+            novelty_scale=novelty_scale)
+        best_i = fitness.argmax()  # the first island, then the first row
+        cands.append((fitness[best_i], p.delays[best_i], p.faults[best_i]))
+        I = sh.islands
+        gens = None if draws is not None else [
+            generator_for(seed, state.gen, sh.device, mesh.coords(g))
+            for g in range(sh.start, sh.start + I)]
+        new_parts.append(ga_generation(
+            gens, Population(p.delays.view(I, Pi, H),
+                             p.faults.view(I, Pi, H)),
+            fitness.view(I, Pi), cfg, delay_bias=bias,
+            draws=None if draws is None else draws[k]))
+    _migrate(new_parts, mesh, ring_plan(mesh, rings, Pi, cfg), state.gen)
+    fit, best_d, best_f = global_best(cands, mesh)
     improved = fit > state.best_fitness
     return IslandState(
-        pop=new_pop,
+        pop=_join([Population(x.delays.reshape(-1, H),
+                              x.faults.reshape(-1, H)) for x in new_parts]),
         gen=state.gen + 1,
         best_fitness=torch.where(improved, fit, state.best_fitness),
-        best_delays=torch.where(improved, pop.delays[best_i],
-                                state.best_delays),
-        best_faults=torch.where(improved, pop.faults[best_i],
-                                state.best_faults),
+        best_delays=torch.where(improved, best_d, state.best_delays),
+        best_faults=torch.where(improved, best_f, state.best_faults),
     ), fit
+
+
+def island_step(state: IslandState, seed: int, traces: TraceArrays,
+                pairs: torch.Tensor, archive: torch.Tensor,
+                failures: torch.Tensor, cfg: GAConfig,
+                weights: ScoreWeights = ScoreWeights(),
+                novelty_scale=None,
+                mutation_bias: Optional[torch.Tensor] = None,
+                draws=None,
+                coin: Optional[torch.Tensor] = None,
+                mesh: Optional[IslandMesh] = None,
+                rings: Sequence[Tuple] = ()
+                ) -> Tuple[IslandState, torch.Tensor]:
+    """One generation over ``mesh`` (one island on the state's device
+    without one): score -> island bests -> GA -> ring migration ->
+    global best. ``rings`` are ``(axis, k)`` or ``(axis, k, every)``.
+    Returns the new state and this generation's global best fitness (a
+    device scalar; nothing here waits for the device). The inputs live
+    on the primary device and are copied to other shards' devices. With
+    the fault ``coin f32[H]`` the population's fault half is scored;
+    ``cfg.max_fault > 0`` without one raises ``ValueError``, as in the
+    reference (the fault half would evolve unscored). ``draws``: a
+    :class:`GADraws` (one shard; ``[Pi, ...]`` or stacked ``[I, Pi,
+    ...]``) or one stacked per shard, in place of the generators."""
+    traces = _prepare(traces, coin, cfg)
+    mesh = mesh if mesh is not None else one_island(state.best_fitness.device)
+    inputs = replicate(mesh, traces, pairs, archive, failures, coin,
+                       mutation_bias)
+    return _step(state, seed, inputs, cfg, weights, novelty_scale, mesh,
+                 rings, draws)
 
 
 def fused_step(state: IslandState, generations: int, seed: int,
@@ -128,17 +358,23 @@ def fused_step(state: IslandState, generations: int, seed: int,
                cfg: GAConfig, weights: ScoreWeights = ScoreWeights(),
                novelty_scale=None,
                mutation_bias: Optional[torch.Tensor] = None,
-               coin: Optional[torch.Tensor] = None
+               coin: Optional[torch.Tensor] = None,
+               mesh: Optional[IslandMesh] = None,
+               rings: Sequence[Tuple] = ()
                ) -> Tuple[IslandState, torch.Tensor]:
-    """``generations`` island steps in one call, with no host sync inside.
-    Returns the state and ``fit_hist f32[generations]``, the best fitness
-    of each generation, left on the device for the caller to drain."""
+    """``generations`` island steps in one call, with no host sync inside
+    (the inputs are copied to the shards' devices once). Returns the
+    state and ``fit_hist f32[generations]``, the global best fitness of
+    each generation, left on the device for the caller to drain."""
     if generations < 1:
         raise ValueError(f"generations must be >= 1, got {generations}")
+    traces = _prepare(traces, coin, cfg)
+    mesh = mesh if mesh is not None else one_island(state.best_fitness.device)
+    inputs = replicate(mesh, traces, pairs, archive, failures, coin,
+                       mutation_bias)
     hist = []
     for _ in range(generations):
-        state, fit = island_step(state, seed, traces, pairs, archive,
-                                 failures, cfg, weights, novelty_scale,
-                                 mutation_bias, coin=coin)
+        state, fit = _step(state, seed, inputs, cfg, weights, novelty_scale,
+                           mesh, rings, None)
         hist.append(fit)
     return state, torch.stack(hist)

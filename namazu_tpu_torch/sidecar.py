@@ -21,7 +21,10 @@ Ops, with the reference's response shapes:
 * the knowledge ops are answered ``ok: false``, as a reference sidecar
   started without ``--pool-dir`` answers them.
 
-Params the port cannot honour (causality guidance, several devices, a
+``devices = N`` runs the search over N islands, one on each of the
+first N cards (on ``--device cpu``, N islands on the CPU); more cards
+than the machine has answers ``ok: false`` with the mesh's error, never
+a smaller mesh. Params the port cannot honour (causality guidance, a
 device-trace directory, the failure pool, the knowledge service) are
 refused with ``{"ok": false, "error": "namazu_tpu_torch: <what> is not
 ported yet"}``; the policy then falls back to its own in-process search.
@@ -61,6 +64,7 @@ from namazu_tpu_torch.models.search import (
     SearchBase,
     make_score_weights,
 )
+from namazu_tpu_torch.parallel.mesh import IslandMesh
 from namazu_tpu_torch.wire import FramedServer, request  # noqa: F401
 
 log = logging.getLogger("namazu_tpu_torch.sidecar")
@@ -70,7 +74,11 @@ KNOWLEDGE_OPS = ("pool_push", "pool_pull", "surrogate_predict", "stats",
                  "triage_push", "triage_pull")
 
 
-class Unported(NotImplementedError):
+class Refused(Exception):
+    """A search request the service answers with ``ok: false``."""
+
+
+class Unported(Refused, NotImplementedError):
     def __init__(self, what: str):
         super().__init__(f"namazu_tpu_torch: {what} is not ported yet")
 
@@ -78,19 +86,21 @@ class Unported(NotImplementedError):
 def _unported_search_params(p: dict) -> Optional[str]:
     if p.get("guidance"):
         return "causality guidance (guidance)"
-    if int(p.get("devices") or 1) > 1:
-        return "a search over several devices (devices > 1)"
     if p.get("device_trace_dir"):
         return "the device-trace capture (device_trace_dir)"
     return None
 
 
-def build_search_from_params(p: dict, device: DeviceLike = "cuda"
+def build_search_from_params(p: dict, device: DeviceLike = "cuda",
+                             mesh: Optional[IslandMesh] = None
                              ) -> SearchBase:
     """A search from the policy's flat params dict (the reference
     policy's ``_search_params``), with the reference sidecar's defaults:
-    the GA, or with ``search_backend = "mcts"`` the MCTS backend; raises
-    :class:`Unported` for a knob the port cannot honour."""
+    the GA, or with ``search_backend = "mcts"`` the MCTS backend, over
+    ``mesh`` or ``devices`` islands (``make_mesh(devices)`` on
+    ``device``; one by default); raises :class:`Unported` for a knob the
+    port cannot honour and ``ValueError`` for more cards than there
+    are."""
     what = _unported_search_params(p)
     if what is not None:
         raise Unported(what)
@@ -121,6 +131,7 @@ def build_search_from_params(p: dict, device: DeviceLike = "cuda"
         migrate_every=int(p.get("migrate_every", 1)),
         dcn_migrate_every=int(p.get("dcn_migrate_every", 1)),
     )
+    n_devices = p.get("devices")
     if p.get("search_backend", "ga") == "mcts":
         mcts_cfg = MCTSConfig(
             tree_depth=p.get("mcts_tree_depth", 24),
@@ -130,8 +141,10 @@ def build_search_from_params(p: dict, device: DeviceLike = "cuda"
             max_delay=p.get("max_interval", 0.1),
             max_fault=p.get("max_fault", 0.0),
         )
-        return MCTSSearch(cfg, mcts_cfg=mcts_cfg, device=device)
-    return ScheduleSearch(cfg, device=device)
+        return MCTSSearch(cfg, mcts_cfg=mcts_cfg, mesh=mesh,
+                          n_devices=n_devices, device=device)
+    return ScheduleSearch(cfg, mesh=mesh, n_devices=n_devices,
+                          device=device)
 
 
 class SearchService:
@@ -156,7 +169,7 @@ class SearchService:
         if op == "search":
             try:
                 return self._search(req)
-            except Unported as e:
+            except Refused as e:
                 return {"ok": False, "error": str(e)}
         if op in KNOWLEDGE_OPS:
             return {"ok": False,
@@ -177,7 +190,10 @@ class SearchService:
             search = cached[1]
             self._maybe_reload(search, checkpoint)
             return search
-        search = build_search_from_params(params, self.device)
+        try:
+            search = build_search_from_params(params, self.device)
+        except ValueError as e:  # e.g. more devices than cards
+            raise Refused(f"search_params: {e}") from e
         if checkpoint and os.path.exists(checkpoint):
             try:
                 search.load(checkpoint)

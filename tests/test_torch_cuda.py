@@ -3,8 +3,11 @@ single-archive kernel (B2) against their plain versions, the wrapper's
 input checks, a small search that must launch B1 once per generation
 and once more per surrogate re-rank, the fault and order-mode scorer on
 the card against the CPU (ranks and drop counts exactly), and an MCTS
-search that launches B1 once per simulation. Every test needs a CUDA card and skips
-without one; on a machine with a card run
+search that launches B1 once per simulation, and phases 9-10 in small (8
+islands on the card launching B1 once a generation, layout independence
+on the card, 8 lockstep MCTS trees with one launch and one sync a
+simulation). Every test needs a CUDA card and skips without one; on a
+machine with a card run
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
@@ -272,3 +275,79 @@ def test_mcts_search_launches_once_per_simulation(card):
     assert pd.LAUNCHES == cfg.simulations
     assert res.tree_visits[0] == cfg.simulations
     assert np.isfinite(float(res.best_fitness))
+
+
+def island_case(card, P=512, H=64):
+    rng = np.random.RandomState(3)
+
+    def enc(n):
+        return te.encode_event_stream(
+            [f"h{rng.randint(40)}" for _ in range(n)],
+            arrivals=np.sort(rng.rand(n)).tolist(), H=H)
+
+    from namazu_tpu_torch.parallel.mesh import make_island_mesh
+
+    s = ScheduleSearch(SearchConfig(H=H, K=64, population=P,
+                                    archive_size=32, failure_size=8,
+                                    fused_chunk=4, migrate_k=4),
+                       mesh=make_island_mesh(8, device=card))
+    for _ in range(5):
+        s.add_executed_trace(enc(200))
+    s.add_failure_trace(enc(200))
+    return s, [enc(300), enc(1200)]
+
+
+def test_eight_islands_on_the_card_launch_once_per_generation(card):
+    """Phase 9 in small: 8 islands in one shard launch B1 once a
+    generation, and 2 shards of 4 on the card give the same populations
+    as 1 shard of 8, bit for bit."""
+    from namazu_tpu_torch.parallel import islands as tisl
+
+    s, refs = island_case(card)
+    before = pd.LAUNCHES
+    best = s.run(refs, generations=6)
+    assert pd.LAUNCHES - before == 6 and np.isfinite(best.fitness)
+    traces, pairs, archive, failures = s._device_inputs(refs)
+    two = s.mesh.reshard(4)
+    args = (s._seed, traces, pairs, archive, failures, s.cfg.ga,
+            s.cfg.weights)
+    before = pd.LAUNCHES
+    a, ha = tisl.fused_step(s._state, 5, *args, mesh=s.mesh, rings=s._rings)
+    b, hb = tisl.fused_step(
+        s._state._replace(pop=tisl.shard_population(s._state.pop, two)), 5,
+        *args, mesh=two, rings=s._rings)
+    assert pd.LAUNCHES - before == 5 + 2 * 5
+    assert torch.equal(a.pop.delays,
+                       tisl.local_population(b.pop, two).delays)
+    assert torch.equal(ha, hb)
+
+
+def test_eight_trees_on_the_card_share_a_launch_and_a_sync(card):
+    """Phase 10 in small: 8 lockstep trees launch B1 once a simulation
+    and synchronise once a simulation."""
+    import warnings
+
+    from namazu_tpu_torch.models.mcts import MCTSConfig, mcts_search_trees
+
+    _, _, _, trace, pairs = tied_scoring_case(seed=4)
+    cfg = MCTSConfig(tree_depth=6, n_levels=4, simulations=12, rollouts=16,
+                     max_delay=0.05)
+    archive = torch.rand((16, 32), device=card)
+    failures = torch.rand((4, 32), device=card)
+    trace, pairs = to(trace, card), pairs.to(card)
+    torch.cuda.synchronize()
+    pd.LAUNCHES = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = mcts_search_trees(list(range(8)), trace, pairs, archive,
+                                    failures, np.arange(6), 32, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    assert pd.LAUNCHES == cfg.simulations
+    assert syncs == cfg.simulations
+    assert len(res) == 8 and all(r.tree_visits[0] == cfg.simulations
+                                 for r in res)

@@ -78,11 +78,13 @@ def close(got, want):
 
 
 def _values(levels, depth, xp):
+    """Over the last axis, so the port's lockstep rollout can take a
+    batch of trees' levels ``[I, depth]``."""
     on = levels >= 0
     d = xp.arange(depth)
     v = xp.where(on, ((levels + 2) * (d + 3)) % 7, 0)
-    mean = v.sum() / 16.0
-    bonus = (xp.where(on, levels, 0).sum() % 3) / 8.0
+    mean = v.sum(-1) / 16.0
+    bonus = (xp.where(on, levels, 0).sum(-1) % 3) / 8.0
     return on, mean, bonus
 
 
@@ -100,13 +102,13 @@ def jax_rollout_factory(trace, pairs, archive, failure_feats, hint_order,
 
 def port_rollout_factory(trace, pairs, archive, failure_feats, hint_order,
                          values, H, cfg, weights, coin=None, seeds=None,
-                         seed=0):
+                         tree_seeds=(0,)):
     def rollout(sim, levels, draws=None):
-        lv = torch.from_numpy(levels.astype(np.int64))
+        lv = torch.from_numpy(levels.astype(np.int64))  # [I, depth]
         on, mean, bonus = _values(lv, cfg.tree_depth, torch)
         mean = mean.float()
-        d = torch.zeros(H)
-        d[: cfg.tree_depth] = torch.where(on, lv, 0).float() / 8.0
+        d = torch.zeros((lv.shape[0], H))
+        d[:, : cfg.tree_depth] = torch.where(on, lv, 0).float() / 8.0
         return mean, mean + bonus.float(), d, -d
     return rollout
 
@@ -185,18 +187,18 @@ def test_one_rollout_matches_reference(kind):
     want = want_roll(key, jnp.asarray(levels))
     kd, kf, ks = jax.random.split(key, 3)
     n_seeded = tmcts.n_seeded_rows(cfg, 0 if seeds is None else 16)
-    draws = tmcts.RolloutDraws(
+    draws = tmcts.RolloutDraws(  # one tree: a leading axis of 1
         delays=torch.from_numpy(np.array(jax.random.uniform(
-            kd, (cfg.rollouts, H), jnp.float32, 0.0, cfg.max_delay))),
+            kd, (1, cfg.rollouts, H), jnp.float32, 0.0, cfg.max_delay))),
         faults=torch.from_numpy(np.array(jax.random.uniform(
-            kf, (cfg.rollouts, H), jnp.float32, 0.0, cfg.max_fault))),
+            kf, (1, cfg.rollouts, H), jnp.float32, 0.0, cfg.max_fault))),
         noise=torch.from_numpy(np.array(jax.random.normal(
-            ks, (n_seeded, H)))))
+            ks, (1, n_seeded, H)))))
     got_roll = tmcts._make_rollout(
         *port[:4], port[4], values, H, cfg, ts.ScoreWeights(),
         coin=None if coin is None else torch.from_numpy(coin),
         seeds=None if seeds is None else torch.from_numpy(seeds))
-    got = got_roll(0, levels, draws=draws)
+    got = [x[0] for x in got_roll(0, levels[None], draws=draws)]
     assert n_seeded == (8 if kind == "seeded" else 0)
     for g, w in zip(got, want):
         close(g.numpy(), w)
@@ -465,3 +467,99 @@ def test_fault_mcts_rescored_by_reference():
         faults=jnp.asarray(best.faults[None]),
         coin=jnp.asarray(jte.fault_coin(5, H)))
     close(best.fitness, float(want[0]))
+
+
+# -- root-parallel trees ----------------------------------------------------
+
+
+def seeded_rollout_factory(*args, tree_seeds=(0,), **kw):
+    """The shared rollout shifted by each tree's seed, so trees of
+    different seeds grow differently."""
+    base = port_rollout_factory(*args, tree_seeds=tree_seeds, **kw)
+    shift = torch.tensor([(s % 5) / 64.0 for s in tree_seeds])
+
+    def rollout(sim, levels, draws=None):
+        mean, fit, d, f = base(sim, levels)
+        return mean + shift, fit + shift, d + shift[:, None], f
+    return rollout
+
+
+def test_parallel_trees_match_reference_under_a_shared_rollout(monkeypatch):
+    """4 trees on make_mesh(4) against the reference's make_parallel_mcts
+    on 4 devices, both packages' rollouts replaced by the shared one: the
+    gathered best is the same."""
+    from namazu_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from namazu_tpu_torch.parallel.mesh import make_mesh
+
+    _, port, ref = toy()
+    monkeypatch.setattr(jmcts, "_make_rollout", jax_rollout_factory)
+    monkeypatch.setattr(tmcts, "_make_rollout", port_rollout_factory)
+    want = jmcts.make_parallel_mcts(jmake_mesh(4), H, jcfg(CFG))(
+        jax.random.PRNGKey(0), *ref)
+    got = tmcts.parallel_mcts(0, make_mesh(4, device="cpu"), *port, H, CFG)
+    assert float(got[0]) == float(want[0])
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert np.array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+@pytest.mark.parametrize("rollouts", ["shared", "scored"])
+def test_lockstep_trees_equal_sequential_searches(rollouts, monkeypatch):
+    """Four trees advanced in lockstep grow exactly as four searches of
+    their seeds alone: under a seed-dependent shared rollout, and with
+    the real scored rollouts."""
+    if rollouts == "shared":
+        monkeypatch.setattr(tmcts, "_make_rollout", seeded_rollout_factory)
+    _, port, _ = toy()
+    seeds = [3, 11, 12, 40]
+    lock = tmcts.mcts_search_trees(seeds, *port, H, CFG)
+    assert len({float(r.best_fitness) for r in lock}) > 1
+    for seed, got in zip(seeds, lock):
+        want = tmcts.mcts_search(seed, *port, H, CFG)
+        for f in ("parent", "action", "depth", "children", "visit",
+                  "value_sum"):
+            assert np.array_equal(getattr(got.tree, f),
+                                  getattr(want.tree, f)), f
+        assert float(got.best_fitness) == float(want.best_fitness)
+        assert torch.equal(got.best_delays, want.best_delays)
+
+
+def test_trees_share_one_b1_launch_per_simulation(monkeypatch):
+    calls = []
+    real = pd.min_sq_distance_pair_reference
+
+    def counting(*a, **kw):
+        calls.append(a[0].shape[0])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(pd, "min_sq_distance_pair_reference", counting)
+    _, port, _ = toy()
+    tmcts.mcts_search_trees([0, 1, 2], *port, H, CFG)
+    assert calls == [3 * CFG.rollouts] * CFG.simulations
+
+
+def test_driver_on_four_trees_and_a_hybrid_mesh(tmp_path):
+    """MCTSSearch over make_mesh(4) and over a 2 x 2 hybrid mesh on the
+    CPU: a tree is seeded from its coordinates, the (0, 0) tree from the
+    search seed, so the one-tree search's best is one of the candidates
+    and the gathered best is at least it."""
+    from namazu_tpu_torch.parallel import distributed as tdist
+
+    enc = toy_encoded(tte)
+    one = tsearch.MCTSSearch(search_cfg(), mcts_cfg=CFG, device="cpu")
+    four = tsearch.MCTSSearch(search_cfg(), mcts_cfg=CFG, n_devices=4,
+                              device="cpu")
+    hyb = tsearch.MCTSSearch(
+        search_cfg(), mcts_cfg=CFG,
+        mesh=tdist.make_hybrid_mesh(n_hosts=2, devices=["cpu"] * 4))
+    assert four.mesh.shape == {"i": 4} and hyb.mesh.shape == {"h": 2, "i": 2}
+    for s in (one, four, hyb):
+        s.add_executed_trace(enc)
+        s.add_failure_trace(toy_encoded(tte, n_hints=7))
+    b1, b4, bh = (s.run(enc, generations=64) for s in (one, four, hyb))
+    assert b4.fitness >= b1.fitness and bh.fitness >= b1.fitness
+    assert four.generations_run == CFG.simulations
+    path = str(tmp_path / "four.npz")
+    four.save(path)
+    back = tsearch.MCTSSearch(search_cfg(), mcts_cfg=CFG, device="cpu")
+    back.load(path)
+    assert back.best().fitness == b4.fitness

@@ -262,14 +262,15 @@ def test_resident_traces_append_and_rebuild():
     assert s._traces.rebuilds == 2
 
 
-@pytest.mark.parametrize("what", ["devices", "guidance"])
+@pytest.mark.parametrize("what", ["device_trace_dir", "guidance"])
 def test_unported_features_raise(what):
     from namazu_tpu_torch.sidecar import build_search_from_params
 
     with pytest.raises(NotImplementedError):
-        if what == "devices":
+        if what == "device_trace_dir":
             build_search_from_params({"H": H, "K": K, "population": 64,
-                                      "devices": 2}, device="cpu")
+                                      "device_trace_dir": "/tmp/trace"},
+                                     device="cpu")
         else:
             tsearch.ScheduleSearch(port_cfg(),
                                    device="cpu").enable_guidance()

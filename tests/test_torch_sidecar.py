@@ -137,7 +137,6 @@ def test_no_history_answer(server, tmp_path):
 
 @pytest.mark.parametrize("where,knob,value,what", [
     ("search", "guidance", True, "guidance"),
-    ("search", "devices", 4, "several devices"),
     ("search", "device_trace_dir", "/tmp/trace", "device-trace"),
     ("ingest", "failure_pool", "/tmp/pool", "failure pool"),
     ("ingest", "knowledge", "127.0.0.1:1", "knowledge service"),
@@ -156,6 +155,34 @@ def test_unported_params_are_refused(server, history, where, knob, value,
     assert resp["error"].endswith(" is not ported yet")
     assert what in resp["error"]
     assert request(addr(server), {"op": "ping"})["searches"] == 0
+
+
+def test_several_devices_are_served_on_the_cpu(server, history):
+    """devices = 4 on the CPU: four islands of 16 in one shard, and the
+    reference policy installs the table the island search computed."""
+    pol, port = run_policy(server, history, devices=4)
+    assert port.mesh.shape == {"i": 4} and port.population == 64
+    assert port._rings == (("i", 2, 1),)
+    assert port.generations_run == 4
+
+
+def test_more_devices_than_cards_answer_not_ok(server, history,
+                                               monkeypatch):
+    """A card count the machine lacks is refused with the mesh's error,
+    never served by a smaller mesh or the CPU."""
+    from namazu_tpu_torch.parallel import mesh as tmesh
+    from namazu_tpu_torch.sidecar import SearchService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    service = SearchService(device="cuda")
+    resp = service.handle(search_req(history, devices=2))
+    assert resp == {"ok": False, "error": "search_params: requested 2 "
+                                          "devices, have 1"}
+    assert service.search_for(history.dir) is None
+    with pytest.raises(ValueError, match="requested 3 devices, have 1"):
+        tmesh.make_mesh(3)
 
 
 def test_checkpoints_interchange_with_reference_search(server, history,
@@ -352,3 +379,30 @@ def test_chip_smoke_rehearses_the_fault_order_and_mcts_paths(tmp_path):
     assert all(n == {"min_sq_pair": 0, "min_sq": 0}
                for n in launches.values())
     assert numbers == {}  # device timings are taken on the card only
+
+
+def test_chip_smoke_rehearses_the_island_paths(tmp_path):
+    """chip_smoke.py's phases 9-10 at a tiny size on the CPU: the island
+    searches with faults and in delay mode (marker, fused == stepwise and
+    layout contracts included), the hybrid mesh's host-ring cadence, 8
+    lockstep MCTS trees and a one-process gloo world, launching no
+    kernel."""
+    import chip_smoke
+
+    sp = dict(chip_smoke.POLICY_SEARCH_PARAMS, H=32, K=32, population=128,
+              fused_chunk=3, mcts_simulations=6, mcts_tree_depth=6,
+              mcts_rollouts=8)
+    ip = dict(chip_smoke.POLICY_INGEST_PARAMS, H=32)
+    hist = dict(runs=12, failures=4, events=200)
+    delay = chip_smoke.write_history(str(tmp_path / "d"), **hist)
+    mixed = chip_smoke.write_history(str(tmp_path / "m"), proc_every=4,
+                                     **hist)
+    launches, numbers = chip_smoke.drive_island_paths(
+        "cpu", delay, mixed, generations=6, search_params=sp,
+        ingest_params=ip)
+    assert sorted(launches) == ["hybrid", "islands_delay",
+                                "islands_faults", "mcts_trees"]
+    assert all(n == {"min_sq_pair": 0, "min_sq": 0}
+               for n in launches.values())
+    assert not torch.distributed.is_initialized()
+    assert "generation" not in numbers["islands_faults"]  # card only
