@@ -77,12 +77,28 @@ Phases, each of which fails the script on any error:
    simulation, the table re-scored on the CPU); a one-process NCCL world
    started by ``initialize_from_env`` in which the hybrid search goes
    through the collectives and equals the same mesh without them, bit
-   for bit.
+   for bit;
+11. knowledge and guidance path: the port's sidecar hosting its
+   knowledge service over a pool directory, and two campaigns of one
+   scenario whose requests carry every knob (guidance in search and
+   ingest, a failure pool of their own, the knowledge service at the
+   sidecar's own address), two requests each at the policy's sizes
+   (64 generations, the surrogate re-ranking the top 16; guidance
+   bitmap 4096 bits, window 16, surrogate [K | 20] wide). Campaign A
+   evolves on phase 5's history and its requests carry
+   ``device_trace_dir``: request 1 writes one trace, request 2 none.
+   Campaign B is a cold storage of 48 runs that all fail but one, so
+   its own surrogate is too thin to train and its re-ranks ask the
+   service's, which must answer trained. B1 launches 2 * 64 + 2 times a
+   campaign; B's first ingest folds A's signatures and coverage bits;
+   the mutation bias exceeds 1; the checkpoint holds the reference's
+   keys and ``guidance_feats`` [512, 20]; ``stats`` shows both tenants;
+   every returned table re-scored on the CPU gives the returned fitness.
 
 Phase 2 also holds B1 at the rollout shapes N = 256 and N = 64 (A = 512,
 F = 64, K = 256) and times it there. Several cards and several processes
 are not driven here (one card): the islands and trees of phases 9-10
-share the card. The last lines are the card line, a JSON line with every
+share the card. Phase 11 prints each request's wall and ingest split. The last lines are the card line, a JSON line with every
 kernel's numbers (launches on every path), and ``{"ok": true, "device":
 {...}}``.
 """
@@ -769,15 +785,16 @@ def profile_mcts(search, refs) -> dict:
 
 
 def write_history(root, runs=HISTORY_RUNS, failures=HISTORY_FAILURES,
-                  events=EVENTS, seed=1, proc_every=0):
+                  events=EVENTS, seed=1, proc_every=0, successes=0):
     """A naive storage directory as namazu_tpu's control plane writes it:
     ``runs`` recorded runs of ``events`` actions each (the reference's
     action dicts, arrival and release stamped), the last of every ``runs
     // failures`` a failure whose releases carry up to 50 ms of injected
     delay (successes up to 2 ms), results stamped with the hint space.
-    Events are packets; with ``proc_every`` the events of every
-    ``proc_every``-th flow record as ProcSetEvent, a class that carries no
-    fault. Returns the directory."""
+    With ``successes`` the outcomes flip: the last of every ``runs //
+    successes`` succeeds and the rest fail. Events are packets; with
+    ``proc_every`` the events of every ``proc_every``-th flow record as
+    ProcSetEvent, a class that carries no fault. Returns the directory."""
     import numpy as np
 
     from namazu_tpu_torch.ops.trace_encoding import HINT_SPACE
@@ -795,9 +812,9 @@ def write_history(root, runs=HISTORY_RUNS, failures=HISTORY_FAILURES,
     os.makedirs(root)
     with open(os.path.join(root, "storage.json"), "w") as f:
         json.dump({"type": "naive", "next_run": runs}, f)
-    every = runs // failures
+    every = runs // (successes or failures)
     for r in range(runs):
-        ok = r % every != every - 1
+        ok = (r % every != every - 1) != bool(successes)
         hints, arrivals = synthetic_stream(rng, events)
         t0 = 1.7e9 + 60.0 * r
         released = np.asarray(arrivals) + rng.rand(events) * (
@@ -965,6 +982,153 @@ def drive_sidecar_path(device, work_dir, generations=GENERATIONS,
         ingest_params)
     time_host_ingest(storage, search.cfg.H)
     return launches
+
+
+KNOWLEDGE_SCENARIO = "chip-smoke"  # the one scenario of both campaigns
+COLD_SUCCESSES = 1  # campaign B: a cold storage of mostly failures
+
+
+def drive_knowledge_path(device, work_dir, generations=GENERATIONS,
+                         search_params=None, ingest_params=None,
+                         history_a=None, **history):
+    """The knowledge and guidance path: one port sidecar hosting its
+    knowledge service over a pool under ``work_dir``, and two campaigns
+    of one scenario with every knob of the policy's request on
+    (guidance in search and ingest, a failure pool of their own, the
+    knowledge service at the sidecar's own address), two requests each
+    over one keep-alive connection. Campaign A evolves on ``history_a``
+    (phase 5's history; written here when None), its requests carrying
+    ``device_trace_dir``; campaign B is a cold storage whose runs mostly
+    fail, so its own successes are too few for its local surrogate and
+    its re-rank asks the shared one. Every check is fatal. Returns
+    ``({path: launches}, numbers)``."""
+    import numpy as np
+
+    from namazu_tpu_torch import wire
+    from namazu_tpu_torch.knowledge import KnowledgeService, shared_client
+    from namazu_tpu_torch.ops import pair_distance as pd
+    from namazu_tpu_torch.sidecar import SidecarServer
+
+    t0 = time.perf_counter()
+    os.makedirs(work_dir, exist_ok=True)
+    if history_a is None:
+        history_a = write_history(os.path.join(work_dir, "history"),
+                                  **history)
+    history.pop("failures", None)
+    cold = write_history(os.path.join(work_dir, "history-cold"), seed=3,
+                         successes=COLD_SUCCESSES, **history)
+    print(f"  campaign A on {history_a}; wrote cold storage {cold} "
+          f"({COLD_SUCCESSES} successes): {time.perf_counter() - t0:.2f} s")
+    trace_dir = os.path.join(work_dir, "trace")
+    server = SidecarServer("127.0.0.1", 0, device=device,
+                           knowledge=KnowledgeService(
+                               os.path.join(work_dir, "knowledge-pool"),
+                               device=device))
+    server.start()
+    addr = f"127.0.0.1:{server.port}"
+    sp0 = dict(search_params or POLICY_SEARCH_PARAMS, guidance=True)
+    launches, numbers = {}, {}
+    try:
+        for name, storage, extra in (
+                ("knowledge_a", history_a, {"device_trace_dir": trace_dir}),
+                ("knowledge_b", cold, {})):
+            tenant = name[-1]
+            ip = dict(ingest_params or POLICY_INGEST_PARAMS, guidance=True,
+                      failure_pool=os.path.join(work_dir, f"pool-{tenant}"),
+                      knowledge=addr, knowledge_tenant=tenant,
+                      knowledge_scenario=KNOWLEDGE_SCENARIO)
+            ckpt = os.path.join(work_dir, f"search-{tenant}.npz")
+            req = {"op": "search", "key": storage, "storage": storage,
+                   "search_params": dict(sp0, **extra), "ingest_params": ip,
+                   "generations": generations, "checkpoint": ckpt}
+            sync(device)
+            pd.LAUNCHES = pd.SINGLE_LAUNCHES = 0
+            resps, walls, warm = [], [], []
+            with socket.create_connection(("127.0.0.1", server.port)) as sk:
+                for r in range(2):
+                    t0 = time.perf_counter()
+                    wire.write_frame(sk, req)
+                    resp = wire.read_frame(sk)
+                    walls.append(time.perf_counter() - t0)
+                    check(resp is not None and resp.get("ok") is True,
+                          f"{name} request {r} failed: {resp}")
+                    resps.append(resp)
+                    search = server.service.search_for(storage)
+                    tm = dict(server.service.timings[storage])
+                    warm.append(dict(server.service.ingest_counts[storage]))
+                    refs = newest_references(storage, H=search.cfg.H)
+                    rescored = rescore_on_cpu(search, refs, resp["delays"],
+                                              resp["faults"])
+                    check(math.isclose(rescored, resp["fitness"],
+                                       rel_tol=RTOL, abs_tol=ATOL),
+                          f"{name} request {r}: re-scored fitness "
+                          f"{rescored} != returned {resp['fitness']}")
+                    split = ", ".join(f"{k[7:]} {v:.3f}" for k, v in
+                                      sorted(tm.items())
+                                      if k.startswith("ingest_"))
+                    print(f"  {name} request {r}: wall {walls[-1]:.3f} s; "
+                          f"ingest {tm['ingest']:.3f} s ({split}); run "
+                          f"{tm['run']:.4f} s, re-rank "
+                          f"{tm['rerank'] * 1e3:.2f} ms, save "
+                          f"{tm['save']:.3f} s; ingest counts {warm[-1]}; "
+                          f"fitness {resp['fitness']:.6f} (re-scored on "
+                          f"the CPU {rescored:.6f})")
+                    if name == "knowledge_a":
+                        n = len(os.listdir(os.path.join(trace_dir,
+                                                        "device_trace")))
+                        check(n == 1, f"{n} device traces after request "
+                                      f"{r}, expected 1")
+                    numbers.setdefault(name, []).append(
+                        dict(tm, wall=walls[-1]))
+            launches[name] = {"min_sq_pair": pd.LAUNCHES,
+                              "min_sq": pd.SINGLE_LAUNCHES}
+            # the client the sidecar's ingest and re-rank share
+            seen = shared_client(addr, tenant=tenant,
+                                 scenario=KNOWLEDGE_SCENARIO).counts
+            if device != "cpu":
+                check(launches[name]["min_sq_pair"] == 2 * generations + 2,
+                      f"pair kernel launched {launches[name]['min_sq_pair']}"
+                      f" times on {name}, expected {2 * generations + 2}")
+            check([x["generations_run"] for x in resps]
+                  == [generations, 2 * generations],
+                  "generations_run is wrong")
+            bias = search.guidance.mutation_bias()
+            check(float(bias.max()) > 1.0, "the mutation bias is flat")
+            keys = CHECKPOINT_KEYS if name == "knowledge_a" else tuple(
+                k for k in CHECKPOINT_KEYS if k != "surrogate_params")
+            with np.load(ckpt) as z:
+                missing = [k for k in keys if k not in z.files]
+                gshape = (z["guidance_feats"].shape
+                          if "guidance_feats" in z.files else None)
+            check(not missing, f"{name} checkpoint lacks {missing}")
+            check(gshape == (search.cfg.archive_size, 20),
+                  f"{name} checkpoint guidance_feats {gshape}")
+            if name == "knowledge_a":
+                check(search._surrogate is not None,
+                      "campaign A's local surrogate did not train")
+            else:
+                check(search._surrogate is None,
+                      "campaign B's local surrogate trained")
+                check(warm[0].get("warmstart_archive", 0) > 0
+                      and warm[0].get("warmstart_coverage", 0) > 0,
+                      f"campaign B's first ingest warm-started nothing: "
+                      f"{warm[0]}")
+                check(seen.get("predicts_trained", 0) == 2,
+                      f"campaign B's re-ranks were not both answered by "
+                      f"a trained shared surrogate: {seen}")
+            print(f"  {name}: B1 launches {launches[name]}, mutation bias "
+                  f"max {bias.max():.3f}, coverage "
+                  f"{search.guidance.covered()} bits, knowledge client "
+                  f"counts {seen}")
+        stats = wire.request(addr, {"op": "stats"})
+        check(set(stats["tenants"]) >= {"a", "b"},
+              f"stats lack a tenant: {sorted(stats['tenants'])}")
+        print(f"  knowledge stats: pool {stats['pool_size']}, tenants "
+              f"{sorted(stats['tenants'])}, surrogate {stats['surrogate']},"
+              f" coverage {list(stats['coverage'].values())}")
+    finally:
+        server.shutdown()
+    return launches, numbers
 
 
 def memory_and_time(fn, device) -> dict:
@@ -1545,11 +1709,16 @@ def main(argv=None) -> int:
             "cuda", os.path.join(work, "history"),
             os.path.join(work, "history-mixed"))
         extra.update(islands)
+        print(json.dumps({"island_paths": numbers}))
+        print("phase: knowledge and guidance path")
+        knowledge, numbers = drive_knowledge_path(
+            "cuda", os.path.join(work, "knowledge"),
+            history_a=os.path.join(work, "history"))
+        extra.update(knowledge)
+        torch.cuda.synchronize()
+        print(json.dumps({"knowledge_path": numbers}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    torch.cuda.synchronize()
-    print(json.dumps({"island_paths": numbers}))
-
     for k in (pair, single):
         k["launches"] = sidecar[k["name"]]
         k["launches_by_path"] = dict(

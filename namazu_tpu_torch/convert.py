@@ -3,8 +3,9 @@
 The reference's ``ScheduleSearch`` saves its state as numpy arrays under
 fixed ``.npz`` keys (``pop_delays``, ``pop_faults``, ``gen``,
 ``best_fitness``, ``best_delays``, ``best_faults``, ``archive``,
-``failures``, ``pairs``, ``archive_n``, ``failure_n``, and
-``surrogate_params`` once its surrogate has trained). These functions
+``failures``, ``pairs``, ``archive_n``, ``failure_n``,
+``surrogate_params`` once its surrogate has trained, and
+``guidance_feats`` with causality guidance wired). These functions
 map those arrays to the port's :class:`IslandState`, archives and
 surrogate weights and back; the port's ``ScheduleSearch.save``/``load``
 use them, and so do the tests.
@@ -22,7 +23,9 @@ is a flax params tree ``{"params": {"Dense_i": {"kernel": [in, out],
 (``dense_i.weight`` is ``[out, in]``). Its checkpoint form is one flat
 f32 vector, ``jax.flatten_util.ravel_pytree`` of the tree: leaves in
 sorted-key order (``Dense_0/bias``, ``Dense_0/kernel``, ``Dense_1/...``),
-each raveled row-major.
+each raveled row-major. A guided search's surrogate reads ``[K | G]``
+features (``G = GUIDANCE_DIMS``), so its vector is that of an MLP of
+input width ``K + G``; :func:`surrogate_state_from_flat` takes the width.
 """
 
 from __future__ import annotations
@@ -43,6 +46,9 @@ class Archives(NamedTuple):
     archive_n: int
     failures: np.ndarray  # f32[F, K]
     failure_n: int
+    # f32[A, G] DAG-shape fragments, slot-aligned with the archive; None
+    # without guidance
+    guidance_feats: Optional[np.ndarray] = None
 
 
 class SearchArrays(NamedTuple):
@@ -52,17 +58,21 @@ class SearchArrays(NamedTuple):
     archive_n: int
     failures: np.ndarray  # f32[F, K]
     failure_n: int
+    guidance_feats: Optional[np.ndarray] = None  # f32[A, G]
 
 
 def archives_from_jax(arrays: Mapping[str, np.ndarray]) -> Archives:
     """The pairs and archives of a checkpoint of either backend."""
     pairs = arrays.get("pairs")
+    gfeats = arrays.get("guidance_feats")
     return Archives(
         pairs=None if pairs is None else np.asarray(pairs, np.int32),
         archive=np.array(arrays["archive"], np.float32),
         archive_n=int(arrays["archive_n"]),
         failures=np.array(arrays["failures"], np.float32),
         failure_n=int(arrays["failure_n"]),
+        guidance_feats=(None if gfeats is None
+                        else np.array(gfeats, np.float32)),
     )
 
 

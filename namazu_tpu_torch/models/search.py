@@ -23,13 +23,22 @@ written by either package loads into the other.
 ``cfg.ga.max_fault > 0`` (with the per-bucket coin the policy replays
 with) and order mode when ``cfg.weights.order_mode``. ``MCTSSearch`` is
 the MCTS backend (``models/mcts.py``) behind the same driver API.
-Causality guidance is a later slice of the port and raises
-``NotImplementedError``.
+
+Causality guidance (``enable_guidance``) wires a relation-coverage map
+(``guidance/``): each archive slot gains a DAG-shape fragment, so the
+surrogate's features widen to ``[K | GUIDANCE_DIMS]``; the GA's delay
+mutation is biased toward buckets of one-sided relations; and the final
+pick adds ``guidance_bonus`` times each candidate's predicted coverage
+gain. ``remote_surrogate`` (the knowledge service's shared model) scores
+the candidates while the local surrogate is too thin to train. With
+``device_trace_dir`` set, the first fused evolve section is captured by
+``torch.profiler`` into ``<dir>/device_trace``.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import os
 import time
 from typing import List, NamedTuple, Optional
@@ -39,6 +48,14 @@ import torch
 
 from namazu_tpu_torch import convert
 from namazu_tpu_torch.device import DeviceLike
+from namazu_tpu_torch.guidance import (
+    DEFAULT_WIDTH,
+    DEFAULT_WINDOW,
+    GUIDANCE_DIMS,
+    CoverageMap,
+    dag_shape_features,
+)
+from namazu_tpu_torch.models.failure_pool import trace_digest
 from namazu_tpu_torch.models.ga import GAConfig, Population
 from namazu_tpu_torch.models.mcts import MCTSConfig, parallel_mcts
 from namazu_tpu_torch.models.surrogate import RewardSurrogate
@@ -60,6 +77,8 @@ from namazu_tpu_torch.parallel.islands import (
 )
 from namazu_tpu_torch.parallel.mesh import IslandMesh, make_mesh
 
+log = logging.getLogger("namazu_tpu_torch.search")
+
 
 class SearchConfig(NamedTuple):
     H: int = te.DEFAULT_H  # hint buckets (genome length)
@@ -80,7 +99,9 @@ class SearchConfig(NamedTuple):
     # below novelty_floor); 0 disables
     min_failure_signatures: int = 0
     novelty_floor: float = 0.25
-    guidance_bonus: float = 0.5  # guidance is not ported yet
+    # with a guidance map wired: weight of a candidate's predicted
+    # relation-coverage gain in the final pick
+    guidance_bonus: float = 0.5
     # run the generations in chunks of fused_chunk per call with no host
     # sync inside a chunk; False = one call per generation. Both give the
     # same populations bit for bit.
@@ -88,6 +109,8 @@ class SearchConfig(NamedTuple):
     fused_chunk: int = 16
     migrate_every: int = 1
     dcn_migrate_every: int = 1
+    # non-empty: the first fused evolve section of this search is traced
+    # by torch.profiler into <device_trace_dir>/device_trace (once)
     device_trace_dir: str = ""
 
 
@@ -122,17 +145,6 @@ def make_score_weights(
         novelty=w_novelty, bug=w_bug, delay_cost=w_delay_cost,
         fault_cost=w_fault_cost, tau=tau,
     )
-
-
-def trace_digest(enc: te.EncodedTrace) -> str:
-    """Content digest of the masked trace: the hint/entity sequence,
-    timing and padding excluded. Two runs that interleaved the same events
-    in the same order are one failure signature."""
-    m = enc.mask
-    h = hashlib.sha256()
-    h.update(enc.hint_ids[m].tobytes())
-    h.update(enc.entity_ids[m].tobytes())
-    return h.hexdigest()[:32]
 
 
 def key_data(seed: int) -> np.ndarray:
@@ -237,11 +249,6 @@ class _ResidentTraces:
                              .contiguous() for n in names))
 
 
-def _unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"namazu_tpu_torch: {what} is not ported yet; use namazu_tpu")
-
-
 def _mesh_for(mesh: Optional[IslandMesh], n_devices: Optional[int],
               device: DeviceLike) -> IslandMesh:
     """The search's mesh: ``mesh``, else ``n_devices`` islands by
@@ -285,6 +292,15 @@ class SearchBase:
         self._coin = (te.fault_coin(cfg.seed, cfg.H)
                       if cfg.ga.max_fault > 0 else None)
         self._traces = _ResidentTraces(self.device)
+        # the knowledge service's shared surrogate, ``feats [N, K'] ->
+        # probs [N] | None``: consulted only while the local surrogate is
+        # too thin to train; None (or a None answer) keeps the local pick
+        self.remote_surrogate = None
+        # causality guidance: the relation-coverage map and, slot-aligned
+        # with the archive, each run's DAG-shape fragment f32[size, G];
+        # both None = the unguided search
+        self.guidance: Optional[CoverageMap] = None
+        self.guidance_feats: Optional[np.ndarray] = None
         self._upload_archives()
 
     # -- archives ----------------------------------------------------------
@@ -297,8 +313,51 @@ class SearchBase:
         self._dev_coin = (None if self._coin is None else
                           torch.from_numpy(self._coin).to(self.device))
 
-    def enable_guidance(self, *args, **kwargs):
-        raise _unsupported("causality guidance")
+    # -- causality guidance ------------------------------------------------
+
+    def enable_guidance(self, width: Optional[int] = None,
+                        window: Optional[int] = None,
+                        fresh: bool = False) -> CoverageMap:
+        """Wire the relation-coverage map and return it. Idempotent; a
+        changed bitmap space, or ``fresh`` (every ingest passes it: the map
+        is rebuilt from the whole stored history each time), builds a new
+        map. Wiring guidance onto a live search widens the surrogate's
+        features, so a surrogate of the old width and archive rows without
+        fragments are dropped; the next ingest refills them."""
+        width = int(width or DEFAULT_WIDTH)
+        window = int(window or DEFAULT_WINDOW)
+        g = self.guidance
+        if (g is None or fresh or g.width != width or g.window != window
+                or g.H != self.cfg.H):
+            self.guidance = CoverageMap(H=self.cfg.H, width=width,
+                                        window=window)
+        if self.guidance_feats is None:
+            self.guidance_feats = np.zeros(
+                (self.cfg.archive_size, GUIDANCE_DIMS), np.float32)
+            if getattr(self, "_surrogate", None) is not None:
+                self._surrogate = None
+            if self._archive_n > 0:
+                self.archive[:] = 0.5
+                self.archive_labels[:] = 0.0
+                self._archive_n = 0
+                self._upload_archives()
+        return self.guidance
+
+    def _guidance_dims(self) -> int:
+        return (0 if self.guidance_feats is None
+                else self.guidance_feats.shape[1])
+
+    def _guidance_feats_of(self, realized: te.EncodedTrace,
+                           arrival: Optional[te.EncodedTrace]
+                           ) -> np.ndarray:
+        """The DAG-shape fragment of one executed run: program order from
+        the arrival view, dispatch order from the realized one (the
+        realized view anchors both without an arrival view)."""
+        src = arrival if arrival is not None else realized
+        m = realized.mask
+        return dag_shape_features(
+            realized.hint_ids[m], src.arrival[m], realized.arrival[m],
+            width=self.guidance.width, dims=self._guidance_dims())
 
     def _feats_of(self, encoded: te.EncodedTrace) -> np.ndarray:
         trace = TraceArrays(
@@ -324,6 +383,8 @@ class SearchBase:
         self.pairs = new
         self.archive[:] = 0.5
         self.archive_labels[:] = 0.0
+        if self.guidance_feats is not None:
+            self.guidance_feats[:] = 0.0  # slot-aligned with the archive
         self._archive_n = 0
         self.failures[:] = 0.5
         self._failure_n = 0
@@ -342,11 +403,14 @@ class SearchBase:
                            ) -> None:
         """Record an executed run's interleaving into the novelty archive,
         labeled with whether it reproduced the bug (the surrogate's
-        target). ``arrival`` (the run's arrival view) feeds causality
-        guidance in the reference and is unused until that is ported."""
+        target). With guidance wired, the slot's DAG-shape fragment is
+        written from this view and ``arrival`` (the run's arrival view)."""
         slot = self._archive_n % self.cfg.archive_size
         self.archive[slot] = self._feats_of(encoded)
         self.archive_labels[slot] = 1.0 if reproduced else 0.0
+        if self.guidance_feats is not None:
+            self.guidance_feats[slot] = self._guidance_feats_of(encoded,
+                                                                arrival)
         self._archive_n += 1
         self._dev_archive[slot].copy_(torch.from_numpy(self.archive[slot]))
 
@@ -373,10 +437,13 @@ class SearchBase:
         return digest in self._failure_digest_set
 
     def labeled_archive(self):
-        """``(feats [N, K], labels [N])`` of the populated archive slots
-        whose outcome is known (NaN labels are excluded)."""
+        """``(feats [N, K'], labels [N])`` of the populated archive slots
+        whose outcome is known (NaN labels are excluded); with guidance
+        wired, ``K' = K + GUIDANCE_DIMS`` (each slot's fragment)."""
         n = min(self._archive_n, self.cfg.archive_size)
         feats, labels = self.archive[:n], self.archive_labels[:n]
+        if self.guidance_feats is not None:
+            feats = np.hstack([feats, self.guidance_feats[:n]])
         known = np.isfinite(labels)
         return feats[known], labels[known]
 
@@ -421,6 +488,8 @@ class SearchBase:
             "key": self._key,
             "generations_run": np.asarray(self.generations_run),
         }
+        if self.guidance_feats is not None:
+            flat["guidance_feats"] = self.guidance_feats
         flat.update(self._state_dict())
         tmp = path + ".tmp.npz"
         np.savez(tmp, **flat)
@@ -429,7 +498,10 @@ class SearchBase:
     def load(self, path: str) -> None:
         """Restore a checkpoint written by this package or by the
         reference's search of the same backend; a checkpoint of the other
-        backend raises ``ValueError``."""
+        backend raises ``ValueError``. A guided search keeps the
+        checkpoint's ``guidance_feats``; a checkpoint without them (or of
+        another size) has no fragments for its archive rows, so the
+        archive is dropped and the next ingest refills it."""
         with np.load(path) as z:
             arrays = {k: z[k] for k in z.files}
         saved = str(arrays["backend"]) if "backend" in arrays else "ga"
@@ -456,6 +528,14 @@ class SearchBase:
             if "archive_labels" in arrays
             # outcomes of the archived runs unknown: NaN marks them
             else np.full((self.cfg.archive_size,), np.nan, np.float32))
+        if self.guidance_feats is not None:
+            if (got.guidance_feats is not None and
+                    got.guidance_feats.shape == self.guidance_feats.shape):
+                self.guidance_feats = got.guidance_feats
+            else:
+                self.archive[:] = 0.5
+                self.archive_labels[:] = 0.0
+                self._archive_n = 0
         if "failure_digests" in arrays:
             self._failure_digests = [str(d) for d in
                                      arrays["failure_digests"]]
@@ -496,6 +576,7 @@ class ScheduleSearch(SearchBase):
             self._rings = (("i", cfg.migrate_k, cfg.migrate_every),)
         self.last_fit_curve: List[float] = []
         self._surrogate: Optional[RewardSurrogate] = None
+        self._device_traced = False  # the one-shot device-trace latch
         self._state = init_island_state(cfg.seed + 1, self.population,
                                         cfg.H, cfg.ga, mesh=self.mesh)
 
@@ -553,23 +634,69 @@ class ScheduleSearch(SearchBase):
         population's top-k by fitness, whose fitness may lie below
         ``best().fitness``."""
         t0 = time.perf_counter()
-        inputs = self._device_inputs(encoded)
+        encs = encoded if isinstance(encoded, (list, tuple)) else [encoded]
+        inputs = self._device_inputs(encs)
         nov_scale = self.novelty_scale()
+        # guided mutation: buckets of one-sided relations mutate more often
+        bias = (None if self.guidance is None else torch.from_numpy(
+            self.guidance.mutation_bias()).to(self.device))
         if self.cfg.fused:
-            curve = self._run_fused(inputs, nov_scale, generations)
+            trace = self._start_device_trace()
+            try:
+                curve = self._run_fused(inputs, nov_scale, generations, bias)
+            finally:
+                if trace is not None:
+                    self._stop_device_trace(*trace)
         else:
-            curve = self._run_stepwise(inputs, nov_scale, generations)
+            curve = self._run_stepwise(inputs, nov_scale, generations, bias)
         self._sync()
         self.last_run_seconds = time.perf_counter() - t0
         self.last_fit_curve = curve
         self.generations_run += generations
         t0 = time.perf_counter()
-        picked = self._surrogate_pick(*inputs, nov_scale)
+        picked = self._surrogate_pick(*inputs, nov_scale, encs=encs)
         self.last_rerank_seconds = time.perf_counter() - t0
         return picked if picked is not None else self.best()
 
-    def _run_stepwise(self, inputs, nov_scale, generations: int
-                      ) -> List[float]:
+    def _start_device_trace(self):
+        """Start the one-shot ``torch.profiler`` capture of this evolve
+        section when ``cfg.device_trace_dir`` is set and nothing was
+        captured yet; ``(profiler, out dir)`` or None. A profiler that
+        cannot start logs one warning and the search runs untraced, on
+        the same device."""
+        if not self.cfg.device_trace_dir or self._device_traced:
+            return None
+        self._device_traced = True
+        out = os.path.join(self.cfg.device_trace_dir, "device_trace")
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        try:
+            os.makedirs(out, exist_ok=True)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+        except Exception as e:
+            log.warning("device-trace capture unavailable (%s); the search "
+                        "runs untraced", e)
+            return None
+        log.info("capturing a device trace of this evolve section into %s",
+                 out)
+        return prof, out
+
+    def _stop_device_trace(self, prof, out: str) -> None:
+        """Stop the capture once the device is done, and write it as a
+        Chrome trace; a failure here is logged and never masks the evolve
+        section's outcome."""
+        try:
+            self._sync()
+            prof.stop()
+            prof.export_chrome_trace(os.path.join(
+                out, f"evolve_{os.getpid()}_{time.time_ns()}.json"))
+        except Exception:
+            log.warning("device-trace export failed", exc_info=True)
+
+    def _run_stepwise(self, inputs, nov_scale, generations: int,
+                      bias: Optional[torch.Tensor] = None) -> List[float]:
         """One island step per generation: the fused path's reference."""
         traces, pairs, archive, failures = inputs
         fits = []
@@ -577,12 +704,13 @@ class ScheduleSearch(SearchBase):
             self._state, fit = island_step(
                 self._state, self._seed, traces, pairs, archive, failures,
                 self.cfg.ga, self.cfg.weights, novelty_scale=nov_scale,
-                coin=self._dev_coin, mesh=self.mesh, rings=self._rings)
+                mutation_bias=bias, coin=self._dev_coin, mesh=self.mesh,
+                rings=self._rings)
             fits.append(fit)
         return [float(v) for v in torch.stack(fits).tolist()] if fits else []
 
-    def _run_fused(self, inputs, nov_scale, generations: int
-                   ) -> List[float]:
+    def _run_fused(self, inputs, nov_scale, generations: int,
+                   bias: Optional[torch.Tensor] = None) -> List[float]:
         """Generations in chunks of ``fused_chunk``, each one call with no
         host sync inside. A chunk's best-fitness history is copied to the
         host asynchronously and read only after the next chunk has been
@@ -596,8 +724,8 @@ class ScheduleSearch(SearchBase):
             self._state, fit_hist = fused_step(
                 self._state, g, self._seed, traces, pairs, archive,
                 failures, self.cfg.ga, self.cfg.weights,
-                novelty_scale=nov_scale, coin=self._dev_coin,
-                mesh=self.mesh, rings=self._rings)
+                novelty_scale=nov_scale, mutation_bias=bias,
+                coin=self._dev_coin, mesh=self.mesh, rings=self._rings)
             done += g
             if pending is not None:
                 self._drain(pending, curve)
@@ -639,6 +767,12 @@ class ScheduleSearch(SearchBase):
 
     # -- surrogate ---------------------------------------------------------
 
+    def _surrogate_input_dims(self) -> int:
+        """The surrogate's feature width: K, plus the DAG-shape fragment
+        with guidance wired (the knowledge service walls its example
+        stores by this width)."""
+        return self.cfg.K + self._guidance_dims()
+
     def _train_surrogate(self) -> Optional[RewardSurrogate]:
         """Fit the MLP on the labeled archive (4 epochs, seeded by the
         generations run so far); None while surrogate use is off or
@@ -651,9 +785,9 @@ class ScheduleSearch(SearchBase):
         if min(pos, neg) < self.MIN_CLASS_EXAMPLES:
             return None
         if self._surrogate is None:
-            self._surrogate = RewardSurrogate(K=self.cfg.K,
-                                              seed=self.cfg.seed,
-                                              device=self.device)
+            self._surrogate = RewardSurrogate(
+                K=self._surrogate_input_dims(), seed=self.cfg.seed,
+                device=self.device)
         self._surrogate.train(feats, labels, epochs=4,
                               seed=self.cfg.seed + self.generations_run)
         return self._surrogate
@@ -670,21 +804,70 @@ class ScheduleSearch(SearchBase):
             coin=self._dev_coin, novelty_scale=nov_scale)
         return torch.argsort(-fitness, stable=True)[:k], fitness, feats
 
+    def _candidate_guidance(self, delays: np.ndarray, encs):
+        """``(gains f32[k], fragments f32[k, G])`` of candidate delay
+        tables, each simulated against the first reference trace under
+        delay mode's release rule (``arrival + delays[bucket]``)."""
+        enc = encs[0]
+        m = enc.mask
+        buckets = enc.hint_ids[m]
+        arrivals = enc.arrival[m]
+        k = delays.shape[0]
+        gains = np.zeros((k,), np.float32)
+        frags = np.zeros((k, self._guidance_dims()), np.float32)
+        for i in range(k):
+            times = arrivals + delays[i][buckets]
+            order = np.argsort(times, kind="stable")
+            gains[i] = self.guidance.predicted_gain(buckets[order])
+            frags[i] = dag_shape_features(
+                buckets, arrivals, times, width=self.guidance.width,
+                dims=self._guidance_dims())
+        return gains, frags
+
     def _surrogate_pick(self, traces, pairs, archive, failures,
-                        nov_scale=None) -> Optional[BestSchedule]:
-        """Re-score the current population once (one pair-kernel launch),
-        take its top-k by fitness (stable descending sort, ties to the
-        lower index), average each candidate's features over the
-        reference traces, and return the candidate the surrogate rates
-        most likely to reproduce; None = no surrogate (fitness argmax)."""
+                        nov_scale=None, encs=()) -> Optional[BestSchedule]:
+        """Re-score the current population once (one pair-kernel launch)
+        and re-rank its top-k by fitness (stable descending sort, ties to
+        the lower index); None = the fitness argmax.
+
+        The base score is P(reproduce) from the local surrogate once it
+        trains, before that from ``remote_surrogate``, and with neither
+        (or a remote answering None) the top-k's min-max-normalized
+        fitness, but only when guided. Candidate features are averaged
+        over the reference traces, widened by the DAG-shape fragments
+        with guidance wired. A guided pick (a map and the reference
+        traces ``encs``) adds ``guidance_bonus`` times each candidate's
+        predicted coverage gain."""
         surrogate = self._train_surrogate()
-        if surrogate is None:
+        remote = self.remote_surrogate if surrogate is None else None
+        guided = self.guidance is not None and len(encs) > 0
+        if self.cfg.surrogate_topk <= 0:
+            return None
+        if surrogate is None and remote is None and not guided:
             return None
         top, fitness, feats = self._rerank_candidates(
             traces, pairs, archive, failures, nov_scale)
         cand_feats = feats[top].mean(dim=1).cpu().numpy()
-        winner = int(top[int(np.argmax(surrogate.predict(cand_feats)))])
         pop = self._full_population()
+        gains = frags = None
+        if guided:
+            gains, frags = self._candidate_guidance(
+                pop.delays[top].cpu().numpy(), encs)
+        base = None
+        if surrogate is not None or remote is not None:
+            full = (cand_feats if frags is None
+                    else np.hstack([cand_feats, frags]))
+            base = (surrogate.predict(full) if surrogate is not None
+                    else remote(full))
+        if base is None:
+            if gains is None:
+                return None  # the remote is out or untrained: argmax
+            f = fitness[top].cpu().numpy()
+            span = float(f.max() - f.min())
+            base = (f - f.min()) / span if span > 0 else np.zeros_like(f)
+        score = (np.asarray(base) if gains is None
+                 else np.asarray(base) + self.cfg.guidance_bonus * gains)
+        winner = int(top[int(np.argmax(score))])
         return BestSchedule(
             delays=pop.delays[winner].cpu().numpy(),
             faults=pop.faults[winner].cpu().numpy(),
@@ -721,14 +904,15 @@ class ScheduleSearch(SearchBase):
         self._state = state
         if "surrogate_params" in arrays:
             # the optimizer restarts, as in the reference; weights of
-            # another feature width retrain from the labeled archive
-            self._surrogate = RewardSurrogate(K=self.cfg.K,
-                                              seed=self.cfg.seed,
+            # another feature width (guidance toggled since the save)
+            # retrain from the labeled archive
+            K = self._surrogate_input_dims()
+            self._surrogate = RewardSurrogate(K=K, seed=self.cfg.seed,
                                               device=self.device)
             try:
                 self._surrogate.load_state_dict(
                     convert.surrogate_state_from_flat(
-                        arrays["surrogate_params"], self.cfg.K))
+                        arrays["surrogate_params"], K))
             except ValueError:
                 self._surrogate = None
 
@@ -783,12 +967,13 @@ class MCTSSearch(SearchBase):
 
     def _hint_order(self, encs) -> np.ndarray:
         """Bucket ids by frequency across the reference traces, most
-        frequent first (a stable sort: ties in bucket order); the tree
-        decides the most-often-hit buckets first."""
+        frequent first; the tree decides the most-often-hit buckets
+        first. numpy's default sort, as in the reference, so tied counts
+        pin the reference's buckets."""
         counts = np.zeros((self.cfg.H,), np.int64)
         for e in encs:
             counts += np.bincount(e.hint_ids[e.mask], minlength=self.cfg.H)
-        return np.argsort(-counts, kind="stable")[
+        return np.argsort(-counts)[
             : self.mcts_cfg.tree_depth].astype(np.int32)
 
     def _next_search_seed(self) -> int:

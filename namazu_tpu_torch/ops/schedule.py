@@ -154,14 +154,17 @@ def order_ranks(prio: torch.Tensor, trace: TraceArrays, window: float = 0.0
     genome row is stable-sorted on one int64 key, the window in the high
     32 bits and the priority's order-preserving bits in the low 32.
 
-    The window is ``floor(arrival / window)`` in f32, a true division as
-    the reference computes it eagerly (XLA under ``jit`` multiplies by
-    the reciprocal instead, which can move an arrival within one ulp of
-    a window edge to the next window)."""
+    The window is ``floor(arrival * (1 / window))`` with the reciprocal
+    rounded to f32 first: the reference's ``floor(arrival / window)`` as
+    XLA compiles it under ``jit`` (a division by a constant becomes a
+    product with its f32 reciprocal), which is what a campaign scores.
+    Eager JAX divides, and within an ulp of a window edge the two can
+    disagree."""
     hint = trace.hint_ids.long()
     L = hint.shape[-1]
     if window > 0:
-        win = torch.floor(trace.arrival / window).to(torch.int32)
+        inv = float(torch.tensor(1.0) / torch.tensor(window))  # f32
+        win = torch.floor(trace.arrival * inv).to(torch.int32)
     else:
         win = torch.zeros(hint.shape, dtype=torch.int32, device=hint.device)
     win = torch.where(trace.mask, win, _INT32_MAX)

@@ -13,26 +13,28 @@ is kept per experiment key, so a campaign's later requests are warm.
 
 Ops, with the reference's response shapes:
 
-* ``{"op": "ping"}`` -> ``{"ok": true, "searches": N}``
+* ``{"op": "ping"}`` -> ``{"ok": true, "searches": N}``, plus
+  ``"knowledge": true, "knowledge_v": 3`` when the knowledge service is
+  hosted
 * ``{"op": "search", "key", "storage", "search_params",
   "ingest_params", "generations", "checkpoint"}`` ->
   ``{"ok": true, "fitness", "delays", "faults", "generations_run"}``, or
   ``{"ok": true, "no_history": true, "generations_run"}``
-* the knowledge ops are answered ``ok: false``, as a reference sidecar
-  started without ``--pool-dir`` answers them.
+* the knowledge ops (``pool_push``, ``pool_pull``, ``surrogate_predict``,
+  ``stats``, ``triage_push``, ``triage_pull``) go to the hosted
+  knowledge service (``knowledge/service.py``) when the sidecar was
+  started with ``--pool-dir``, and are refused otherwise.
 
-``devices = N`` runs the search over N islands, one on each of the
-first N cards (on ``--device cpu``, N islands on the CPU); more cards
-than the machine has answers ``ok: false`` with the mesh's error, never
-a smaller mesh. Params the port cannot honour (causality guidance, a
-device-trace directory, the failure pool, the knowledge service) are
-refused with ``{"ok": false, "error": "namazu_tpu_torch: <what> is not
-ported yet"}``; the policy then falls back to its own in-process search.
-Run it with
+Every knob of the policy's request is served: the fault half, order
+mode, the MCTS backend, ``devices = N`` (N islands, one on each of the
+first N cards, or N islands on the CPU; more cards than the machine has
+answers ``ok: false`` with the mesh's error, never a smaller mesh),
+causality guidance, the failure pool, the knowledge service (which may
+be this sidecar itself: each connection has its own thread) and the
+one-shot device trace. Run it with
 
-    python -m namazu_tpu_torch.sidecar --listen 127.0.0.1:10990
-
-(``--device cpu`` without a card).
+    python -m namazu_tpu_torch.sidecar --listen 127.0.0.1:10990 \
+        [--pool-dir DIR] [--device cpu]
 """
 
 from __future__ import annotations
@@ -50,12 +52,14 @@ import numpy as np
 
 from namazu_tpu_torch.device import DeviceLike, resolve_device
 from namazu_tpu_torch.history import load_storage
-from namazu_tpu_torch.models.ga import GAConfig
-from namazu_tpu_torch.models.ingest import (
-    IngestParams,
-    ingest_history,
-    unported,
+from namazu_tpu_torch.knowledge import (
+    KNOWLEDGE_OPS,
+    KnowledgeService,
+    pairs_fingerprint,
+    shared_client,
 )
+from namazu_tpu_torch.models.ga import GAConfig
+from namazu_tpu_torch.models.ingest import IngestParams, ingest_history
 from namazu_tpu_torch.models.mcts import MCTSConfig
 from namazu_tpu_torch.models.search import (
     MCTSSearch,
@@ -69,26 +73,9 @@ from namazu_tpu_torch.wire import FramedServer, request  # noqa: F401
 
 log = logging.getLogger("namazu_tpu_torch.sidecar")
 
-#: the reference sidecar's knowledge-plane ops (served with --pool-dir)
-KNOWLEDGE_OPS = ("pool_push", "pool_pull", "surrogate_predict", "stats",
-                 "triage_push", "triage_pull")
-
 
 class Refused(Exception):
     """A search request the service answers with ``ok: false``."""
-
-
-class Unported(Refused, NotImplementedError):
-    def __init__(self, what: str):
-        super().__init__(f"namazu_tpu_torch: {what} is not ported yet")
-
-
-def _unported_search_params(p: dict) -> Optional[str]:
-    if p.get("guidance"):
-        return "causality guidance (guidance)"
-    if p.get("device_trace_dir"):
-        return "the device-trace capture (device_trace_dir)"
-    return None
 
 
 def build_search_from_params(p: dict, device: DeviceLike = "cuda",
@@ -98,12 +85,9 @@ def build_search_from_params(p: dict, device: DeviceLike = "cuda",
     policy's ``_search_params``), with the reference sidecar's defaults:
     the GA, or with ``search_backend = "mcts"`` the MCTS backend, over
     ``mesh`` or ``devices`` islands (``make_mesh(devices)`` on
-    ``device``; one by default); raises :class:`Unported` for a knob the
-    port cannot honour and ``ValueError`` for more cards than there
-    are."""
-    what = _unported_search_params(p)
-    if what is not None:
-        raise Unported(what)
+    ``device``; one by default), with causality guidance wired when
+    asked (before any checkpoint load, so archive rows and fragments stay
+    slot-aligned); raises ``ValueError`` for more cards than there are."""
     weights = make_score_weights(
         release_mode=p.get("release_mode", "delay"),
         w_novelty=p.get("w_novelty", 1.0),
@@ -130,6 +114,7 @@ def build_search_from_params(p: dict, device: DeviceLike = "cuda",
         fused_chunk=int(p.get("fused_chunk", 16)),
         migrate_every=int(p.get("migrate_every", 1)),
         dcn_migrate_every=int(p.get("dcn_migrate_every", 1)),
+        device_trace_dir=str(p.get("device_trace_dir", "") or ""),
     )
     n_devices = p.get("devices")
     if p.get("search_backend", "ga") == "mcts":
@@ -141,10 +126,15 @@ def build_search_from_params(p: dict, device: DeviceLike = "cuda",
             max_delay=p.get("max_interval", 0.1),
             max_fault=p.get("max_fault", 0.0),
         )
-        return MCTSSearch(cfg, mcts_cfg=mcts_cfg, mesh=mesh,
-                          n_devices=n_devices, device=device)
-    return ScheduleSearch(cfg, mesh=mesh, n_devices=n_devices,
-                          device=device)
+        search: SearchBase = MCTSSearch(cfg, mcts_cfg=mcts_cfg, mesh=mesh,
+                                        n_devices=n_devices, device=device)
+    else:
+        search = ScheduleSearch(cfg, mesh=mesh, n_devices=n_devices,
+                                device=device)
+    if p.get("guidance"):
+        search.enable_guidance(p.get("guidance_width") or None,
+                               p.get("guidance_window") or None)
+    return search
 
 
 class SearchService:
@@ -158,9 +148,15 @@ class SearchService:
         # one lock per key across ingest + evolve + save: a second request
         # for the same storage queues behind the one in flight
         self._key_locks: Dict[str, threading.Lock] = {}
-        #: key -> seconds of the last search request's phases: ingest,
-        #: run (evolve), rerank (surrogate train + re-rank), save
+        #: key -> seconds of the last search request's phases: ingest
+        #: and its sections (ingest_read_encode, ingest_pool_io,
+        #: ingest_guidance_observe, ingest_knowledge: the knowledge round
+        #: trips, ingest_archive), run (evolve), rerank (surrogate train,
+        #: candidate guidance and re-rank), save
         self.timings: Dict[str, Dict[str, float]] = {}
+        #: key -> the last ingest's counts (warmstart_archive,
+        #: warmstart_coverage, coverage_bits, one_sided)
+        self.ingest_counts: Dict[str, Dict[str, int]] = {}
 
     def handle(self, req: dict) -> dict:
         op = req.get("op")
@@ -171,10 +167,6 @@ class SearchService:
                 return self._search(req)
             except Refused as e:
                 return {"ok": False, "error": str(e)}
-        if op in KNOWLEDGE_OPS:
-            return {"ok": False,
-                    "error": "knowledge service not configured "
-                             "(namazu_tpu_torch serves search ops only)"}
         return {"ok": False, "error": f"unknown op {op!r}"}
 
     def search_for(self, key: str) -> Optional[SearchBase]:
@@ -237,9 +229,6 @@ class SearchService:
         ip = IngestParams(**{k: v for k, v in
                              (req.get("ingest_params") or {}).items()
                              if k in IngestParams._fields})
-        what = unported(ip)  # search params: build_search_from_params
-        if what is not None:
-            raise Unported(what)
         with self._key_lock(key):
             return self._search_locked(key, req, params, ip)
 
@@ -252,9 +241,21 @@ class SearchService:
             storage = load_storage(storage_dir) if storage_dir else None
         except Exception as e:
             return {"ok": False, "error": f"storage: {e}"}
+        if ip.knowledge:
+            # the candidate re-rank may consult the shared surrogate while
+            # the local one is too thin, possibly over this sidecar's own
+            # loopback (each connection has its own handler thread)
+            kc = shared_client(ip.knowledge, tenant=ip.knowledge_tenant,
+                               scenario=ip.knowledge_scenario)
+            search.remote_surrogate = (
+                lambda feats, _c=kc, _s=search:
+                    _c.predict(feats, pairs_fp=pairs_fingerprint(_s.pairs)))
+        stats: Dict[str, float] = {}
         t0 = time.perf_counter()
-        references = ingest_history(search, storage, ip)
+        references = ingest_history(search, storage, ip, stats=stats)
         t1 = time.perf_counter()
+        self.ingest_counts[key] = {k: v for k, v in stats.items()
+                                   if isinstance(v, int)}
         if not references:
             return {"ok": True, "no_history": True,
                     "generations_run": search.generations_run}
@@ -266,11 +267,12 @@ class SearchService:
                 search.save(checkpoint)
             except Exception:
                 log.exception("could not save checkpoint %s", checkpoint)
-        self.timings[key] = {
-            "ingest": t1 - t0, "run": search.last_run_seconds,
-            "rerank": search.last_rerank_seconds,
-            "save": time.perf_counter() - t2,
-        }
+        self.timings[key] = dict(
+            {f"ingest_{k}": v for k, v in stats.items()
+             if isinstance(v, float)},
+            ingest=t1 - t0, run=search.last_run_seconds,
+            rerank=search.last_rerank_seconds,
+            save=time.perf_counter() - t2)
         return {
             "ok": True,
             "fitness": float(best.fitness),
@@ -281,11 +283,14 @@ class SearchService:
 
 
 class SidecarServer:
-    """The search service behind a keep-alive framed server."""
+    """The search service, and the knowledge service when one is given,
+    behind a keep-alive framed server."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 10990,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 knowledge: Optional[KnowledgeService] = None):
         self.service = SearchService(device)
+        self.knowledge = knowledge
         self._host, self._port = host, port
         self._srv: Optional[FramedServer] = None
 
@@ -295,7 +300,7 @@ class SidecarServer:
         return self._srv.port
 
     def start(self) -> None:
-        srv = FramedServer(self.service.handle, name="sidecar")
+        srv = FramedServer(self._dispatch, name="sidecar")
         srv.bind_tcp(self._host, self._port)
         srv.start()
         self._srv = srv
@@ -306,6 +311,26 @@ class SidecarServer:
         srv, self._srv = self._srv, None
         if srv is not None:
             srv.shutdown()
+        if self.knowledge is not None:
+            self.knowledge.close()
+
+    def _dispatch(self, req: dict) -> dict:
+        """Knowledge ops to the hosted service (an explicit refusal
+        without one, so clients tell "no knowledge here" from a dead
+        host), everything else to the search service; ``ping`` advertises
+        the knowledge service only when one is hosted."""
+        op = req.get("op")
+        if op in KNOWLEDGE_OPS:
+            if self.knowledge is None:
+                return {"ok": False,
+                        "error": "knowledge service not configured "
+                                 "(start the sidecar with --pool-dir)"}
+            return self.knowledge.handle(req)
+        resp = self.service.handle(req)
+        if op == "ping" and self.knowledge is not None:
+            resp["knowledge"] = True
+            resp["knowledge_v"] = self.knowledge.VERSION
+        return resp
 
 
 def main(argv=None) -> int:
@@ -315,14 +340,27 @@ def main(argv=None) -> int:
     ap.add_argument("--listen", default="127.0.0.1:10990",
                     help="host:port to serve on (default 127.0.0.1:10990)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="device of the search (default cuda)")
+                    help="device of the search and of the knowledge "
+                         "service's surrogates (default cuda)")
+    ap.add_argument("--pool-dir", default="",
+                    help="host the knowledge service over this failure "
+                         "pool directory (default: not hosted)")
+    ap.add_argument("--state-dir", default="",
+                    help="the knowledge service's state directory "
+                         "(default <pool-dir>/_state)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s "
                                "%(message)s")
     host, _, port = args.listen.rpartition(":")
+    knowledge = None
+    if args.pool_dir:
+        knowledge = KnowledgeService(args.pool_dir,
+                                     state_dir=args.state_dir,
+                                     device=args.device)
+        log.info("knowledge service enabled: pool %s", knowledge.pool_dir)
     server = SidecarServer(host or "127.0.0.1", int(port),
-                           device=args.device)
+                           device=args.device, knowledge=knowledge)
     server.start()
     try:
         threading.Event().wait()

@@ -270,10 +270,125 @@ def test_other_storage_types_raise_naming_the_type(tmp_path):
         history.load_storage(str(tmp_path))
 
 
-@pytest.mark.parametrize("knob", ["failure_pool", "knowledge", "guidance"])
-def test_unported_ingest_params_raise(knob, storage):
-    ts = tsearch.ScheduleSearch(port_cfg(), device="cpu")
-    p = tingest.IngestParams(H=H, **{knob: True if knob == "guidance"
-                                     else "somewhere"})
-    with pytest.raises(NotImplementedError, match=knob):
-        tingest.ingest_history(ts, history.load_storage(storage.dir), p)
+def start_services(tmp_path):
+    """A reference and a port sidecar, each hosting its own package's
+    knowledge service; returns their addresses and a stop function."""
+    from namazu_tpu.knowledge import KnowledgeService as JKnowledge
+    from namazu_tpu.sidecar import SidecarServer as JSidecar
+    from namazu_tpu_torch.knowledge import KnowledgeService as TKnowledge
+    from namazu_tpu_torch.sidecar import SidecarServer as TSidecar
+
+    js = JSidecar(port=0, knowledge=JKnowledge(str(tmp_path / "kj")))
+    ts = TSidecar(port=0, device="cpu",
+                  knowledge=TKnowledge(str(tmp_path / "kt"), device="cpu"))
+    for srv in (js, ts):
+        srv.start()
+
+    def stop():
+        for srv in (js, ts):
+            srv.shutdown()
+
+    return {"ref": f"127.0.0.1:{js.port}",
+            "port": f"127.0.0.1:{ts.port}"}, stop
+
+
+#: per package: (ingest module, storage reader, a fresh search)
+PACKAGES = {
+    "ref": (jingest, jload,
+            lambda: jsearch.ScheduleSearch(jax_cfg(), n_devices=1)),
+    "port": (tingest, history.load_storage,
+             lambda: tsearch.ScheduleSearch(port_cfg(), device="cpu")),
+}
+
+
+@pytest.mark.parametrize("knobs", ["failure_pool", "knowledge", "guidance",
+                                   "all"])
+def test_pooled_knowledge_and_guided_ingest_match_reference(tmp_path, knobs):
+    """Campaign A ingests its storage with the knobs on, then campaign B
+    (another storage of the scenario) does: each package's B, fed through
+    its own pool directory and its own knowledge service, holds the same
+    pairs, digests, labels, seeds, archive and failure rows, DAG-shape
+    fragments, coverage bits and references as the other's."""
+    on = ({"failure_pool", "knowledge", "guidance"} if knobs == "all"
+          else {knobs})
+    a = write_storage(tmp_path / "A", seed=0)
+    b = write_storage(tmp_path / "B", seed=1)
+    addrs, stop = (start_services(tmp_path) if "knowledge" in on
+                   else ({"ref": "", "port": ""}, lambda: None))
+    states = {}
+    try:
+        for pkg, (ing, reader, fresh) in PACKAGES.items():
+            def params(tenant):
+                return ing.IngestParams(
+                    H=H, max_interval=0.05, max_seed_genomes=8,
+                    failure_pool=(str(tmp_path / f"pool-{pkg}")
+                                  if "failure_pool" in on else ""),
+                    knowledge=addrs[pkg], knowledge_tenant=tenant,
+                    knowledge_scenario="scen",
+                    guidance="guidance" in on)
+            ing.ingest_history(fresh(), reader(a.dir), params("A"))
+            search, stats = fresh(), {}
+            kw = {"stats": stats} if pkg == "port" else {}
+            refs = ing.ingest_history(search, reader(b.dir), params("B"),
+                                      **kw)
+            states[pkg] = (search, refs, stats)
+    finally:
+        stop()
+    (js, jrefs, _), (ts, trefs, stats) = states["ref"], states["port"]
+    assert len(trefs) == len(jrefs) == 4
+    for g, w in zip(trefs, jrefs):
+        assert_same_encoding(g, w)
+    assert np.array_equal(ts.pairs, js.pairs)
+    pooled = bool(on & {"failure_pool", "knowledge"})
+    assert (ts._archive_n, ts._failure_n) == (js._archive_n, js._failure_n)
+    assert ts._failure_n == (4 if pooled else 2)  # A's 2 fold into B
+    assert ts._failure_digests == js._failure_digests
+    assert np.array_equal(ts.archive_labels, js.archive_labels)
+    np.testing.assert_allclose(ts.archive, js.archive, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(ts.failures, js.failures, rtol=RTOL,
+                               atol=ATOL)
+    jd, td = np.asarray(js._state.pop.delays), ts._state.pop.delays.numpy()
+    n_seeds = 4 if pooled else 2  # own failures first, then pooled ones
+    for row in (i * (64 // n_seeds) for i in range(n_seeds)):
+        assert np.array_equal(td[row], jd[row]) and td[row].any()
+    if "guidance" in on:
+        np.testing.assert_allclose(ts.guidance_feats, js.guidance_feats,
+                                   rtol=RTOL, atol=ATOL)
+        assert ts.guidance.bits_list() == js.guidance.bits_list()
+        assert ts.guidance.runs_observed == js.guidance.runs_observed == \
+            (8 if pooled else 6)
+        assert stats["coverage_bits"] == ts.guidance.covered()
+        assert np.array_equal(ts.guidance.mutation_bias(),
+                              js.guidance.mutation_bias())
+    else:
+        assert ts.guidance is None and js.guidance is None
+    if knobs == "knowledge":
+        assert stats["warmstart_archive"] == 2
+    assert stats["read_encode"] >= 0.0 and stats["archive"] >= 0.0
+    assert ("knowledge" in stats) == ("knowledge" in on)
+    assert ("pool_io" in stats) == pooled
+    assert ("guidance_observe" in stats) == ("guidance" in on)
+
+
+def test_fresh_storage_evolves_against_pooled_arrivals(tmp_path):
+    """A storage with no runs of its own falls back to the pooled
+    signatures' arrival views as its references, as the reference's
+    ingest does."""
+    from namazu_tpu.models.failure_pool import trace_digest as jdigest
+
+    a = write_storage(tmp_path / "A", seed=0)
+    empty = new_storage("naive", str(tmp_path / "empty"))
+    empty.create()
+    got = {}
+    for pkg, (ing, reader, fresh) in PACKAGES.items():
+        p = ing.IngestParams(H=H, failure_pool=str(tmp_path / f"p-{pkg}"))
+        ing.ingest_history(fresh(), reader(a.dir), p)
+        search = fresh()
+        got[pkg] = (ing.ingest_history(search, reader(empty.dir), p),
+                    search)
+    (jrefs, js), (trefs, ts) = got["ref"], got["port"]
+    assert len(trefs) == len(jrefs) == 2
+    assert sorted(tsearch.trace_digest(r) for r in trefs) == \
+        sorted(jdigest(r) for r in jrefs)
+    assert ts._failure_digests == js._failure_digests
+    assert ts._failure_n == 2

@@ -54,8 +54,7 @@ def toy(n=48, n_hints=12, seed=0, cfg=CFG):
         arrivals=[i * 0.001 for i in range(n)], L=L, H=H)
     pairs = tte.sample_pairs(K, H, seed)
     counts = np.bincount(enc.hint_ids[enc.mask], minlength=H)
-    order = np.argsort(-counts, kind="stable")[: cfg.tree_depth].astype(
-        np.int32)
+    order = np.argsort(-counts)[: cfg.tree_depth].astype(np.int32)
     port = (ts.TraceArrays(torch.from_numpy(enc.hint_ids[None]).long(),
                            torch.from_numpy(enc.arrival[None]),
                            torch.from_numpy(enc.mask[None])),
@@ -370,10 +369,24 @@ def test_hint_order_prefers_frequent_buckets():
     assert set(order[: len(hot)].tolist()) == hot
     js_ = jsearch.MCTSSearch(jsearch_cfg(), mcts_cfg=jcfg(CFG), n_devices=1)
     want = js_._hint_order([toy_encoded(jte, n=40, n_hints=4)])
-    assert np.array_equal(counts[order], counts[want])  # ties may reorder
-    # a stable sort: equal counts stay in bucket order
-    cold = order[len(hot):]
-    assert list(cold) == sorted(cold)
+    assert np.array_equal(order, want)  # the reference's buckets, ties too
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_hint_order_breaks_ties_as_the_reference(seed):
+    """Counts with many ties inside and at the tree-depth cut: the port
+    pins exactly the reference's buckets, in its order."""
+    rng = np.random.RandomState(seed)
+    hints = [f"h{rng.randint(24)}" for _ in range(rng.randint(8, 60))]
+    cfg = tmcts.MCTSConfig(tree_depth=12, n_levels=3, simulations=8,
+                           rollouts=4, max_delay=0.05)
+    s = tsearch.MCTSSearch(search_cfg(), mcts_cfg=cfg, device="cpu")
+    js_ = jsearch.MCTSSearch(jsearch_cfg(), mcts_cfg=jcfg(cfg), n_devices=1)
+    encs = [tte.encode_event_stream(hints[i::2], H=H) for i in range(2)]
+    jencs = [jte.encode_event_stream(hints[i::2], H=H) for i in range(2)]
+    counts = sum(np.bincount(e.hint_ids[e.mask], minlength=H) for e in encs)
+    assert len(set(counts.tolist())) < H  # ties exist
+    assert np.array_equal(s._hint_order(encs), js_._hint_order(jencs))
 
 
 def test_tree_depth_clamped_to_hint_buckets():

@@ -12,7 +12,10 @@ counterpart here.
 
 Tolerances: ranks (the sorted order and the rank within a window) must be
 equal exactly; release times, features and fitness within rtol 1e-3 /
-atol 1e-4; populations given the same draws exactly."""
+atol 1e-4; populations given the same draws exactly. Windows are held to
+the reference as ``jax.jit`` compiles it (``floor(arrival / window)``
+becomes a product with the f32 reciprocal), the form a campaign scores;
+eager JAX divides and can disagree within an ulp of a window edge."""
 
 import numpy as np
 import pytest
@@ -70,22 +73,28 @@ def jax_order_release(prio, trace, gap=GAP, window=WINDOW):
     return js.order_release_times(jnp.asarray(prio), trace, gap, window)
 
 
+def jit_windows(arrival, window):
+    """The reference's window expression as ``jax.jit`` compiles it."""
+    return np.asarray(jax.jit(
+        lambda a: jnp.floor(a / window).astype(jnp.int32))(
+            jnp.asarray(arrival)))
+
+
 def ref_ranks(prio, hint, arrival, mask, window):
     """The reference's sort order and rank within a window for one genome
     against one trace, from ``jnp.lexsort`` on its own keys."""
     if window > 0:
-        win = np.asarray(jnp.floor(jnp.asarray(arrival) / window)
-                         .astype(jnp.int32))
+        win = jit_windows(arrival, window)
     else:
         win = np.zeros(arrival.shape, np.int32)
     win = np.where(mask, win, np.iinfo(np.int32).max)
     key = np.where(mask, prio[hint], np.inf).astype(np.float32)
     order = np.asarray(jnp.lexsort((jnp.asarray(arrival), jnp.asarray(key),
                                     jnp.asarray(win))))
-    t = np.asarray(js.order_release_times(
-        jnp.asarray(prio), js.TraceArrays(jnp.asarray(hint),
-                                          jnp.asarray(arrival),
-                                          jnp.asarray(mask)), GAP, window))
+    t = np.asarray(jax.jit(lambda p, h, a, m: js.order_release_times(
+        p, js.TraceArrays(h, a, m), GAP, window))(
+            jnp.asarray(prio), jnp.asarray(hint), jnp.asarray(arrival),
+            jnp.asarray(mask)))
     base = (win.astype(np.float32) + np.float32(1.0)) * np.float32(window)
     within = np.rint((t - base) / np.float32(GAP)).astype(np.int64)
     return order, np.where(mask, within, -1)
@@ -188,6 +197,43 @@ def test_release_times_match_reference(window):
         d, tr, GAP, window))(jtrace(c)))(jnp.asarray(c["delays"]))
     close(got, want)
     assert (got[:, ~c["mask"]] == ts.BIG).all()
+
+
+def edge_arrivals(window, n=4000):
+    """Arrivals at k * window (k * 0.05 at the default) and one f32 ulp
+    either side, sorted."""
+    base = (np.arange(n, dtype=np.float64) * window).astype(np.float32)
+    a = np.concatenate([base, np.nextafter(base, np.float32(np.inf)),
+                        np.nextafter(base, np.float32(-np.inf))])
+    return np.sort(a[a >= 0]).astype(np.float32)
+
+
+@pytest.mark.parametrize("window", [WINDOW, 0.03, 0.007])
+def test_window_edges_follow_the_jitted_reference(window):
+    """C2: at window edges the port's windows equal the jitted
+    reference's exactly (where eager division would disagree), so its
+    ranks within a window do too, and its release times match the jitted
+    order_release_times."""
+    arr = edge_arrivals(window)
+    rng = np.random.RandomState(3)
+    hint = rng.randint(0, 16, arr.size).astype(np.int32)
+    mask = np.ones(arr.size, bool)
+    prio = rng.rand(16).astype(np.float32)
+    trace = ts.TraceArrays(t_(hint).long(), t_(arr), t_(mask))
+    order, within, win = ts.order_ranks(t_(prio), trace, window)
+    want_win = jit_windows(arr, window)
+    eager = np.asarray(jnp.floor(jnp.asarray(arr) / window).astype(jnp.int32))
+    assert (eager != want_win).any()  # the edges the two forms split
+    assert np.array_equal(win.numpy(), want_win)
+    want_o, want_w = ref_ranks(prio, hint, arr, mask, window)
+    assert np.array_equal(order.numpy(), want_o)
+    assert np.array_equal(within.numpy(), want_w)
+    got = ts.order_release_times(t_(prio), trace, GAP, window).numpy()
+    want = jax.jit(lambda p, h, a, m: js.order_release_times(
+        p, js.TraceArrays(h, a, m), GAP, window))(
+            jnp.asarray(prio), jnp.asarray(hint), jnp.asarray(arr),
+            jnp.asarray(mask))
+    close(got, want)
 
 
 def test_negative_zero_priority_ties_with_zero():

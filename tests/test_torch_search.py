@@ -263,17 +263,33 @@ def test_resident_traces_append_and_rebuild():
 
 
 @pytest.mark.parametrize("what", ["device_trace_dir", "guidance"])
-def test_unported_features_raise(what):
+def test_search_params_build_guidance_and_device_trace(what, tmp_path):
+    """The sidecar's ``build_search_from_params`` wires what the
+    reference's does: the guidance map (before any checkpoint load) and
+    the device-trace directory, whose first fused run writes one trace
+    and later runs none."""
+    from namazu_tpu.sidecar import build_search_from_params as jbuild
     from namazu_tpu_torch.sidecar import build_search_from_params
 
-    with pytest.raises(NotImplementedError):
-        if what == "device_trace_dir":
-            build_search_from_params({"H": H, "K": K, "population": 64,
-                                      "device_trace_dir": "/tmp/trace"},
-                                     device="cpu")
-        else:
-            tsearch.ScheduleSearch(port_cfg(),
-                                   device="cpu").enable_guidance()
+    params = {"H": H, "K": K, "population": 64, "fused_chunk": 2}
+    if what == "guidance":
+        params.update(guidance=True, guidance_width=512, guidance_window=8)
+        s, js = build_search_from_params(params, device="cpu"), \
+            jbuild(params)
+        for x in (s, js):
+            assert (x.guidance.H, x.guidance.width, x.guidance.window) == \
+                (H, 512, 8)
+            assert x.guidance_feats.shape == (512, 20)
+        return
+    out = tmp_path / "dt"
+    s = build_search_from_params(dict(params, device_trace_dir=str(out)),
+                                 device="cpu")
+    assert s.cfg.device_trace_dir == str(out)
+    s.run(refs(tte), generations=3)
+    traces = list((out / "device_trace").iterdir())
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
+    s.run(refs(tte), generations=3)  # one capture a search
+    assert len(list((out / "device_trace").iterdir())) == 1
 
 
 def test_config_and_weights_match_reference():

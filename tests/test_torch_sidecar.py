@@ -1,10 +1,12 @@
 """The port's search sidecar (namazu_tpu_torch/sidecar.py, wire.py) on the
 CPU: the framed wire with keep-alive, the reference's response shapes,
-refusal of what is not ported, checkpoints shared with the reference's
-in-process search, and the reference ``tpu_search`` policy installing the
-port's table through ``sidecar = "host:port"``, for the GA in delay mode,
-with the fault half (``max_fault > 0``), in order mode (``release_mode =
-"reorder"``) and for the MCTS backend.
+every knob of the policy's request served (causality guidance, the
+device trace, the failure pool, the knowledge service it hosts itself),
+checkpoints shared with the reference's in-process search, and the
+reference ``tpu_search`` policy installing the port's table through
+``sidecar = "host:port"``, for the GA in delay mode, with the fault half
+(``max_fault > 0``), in order mode (``release_mode = "reorder"``), for
+the MCTS backend and with each of those knobs.
 
 Sizes are small (P=64, H=K=32, runs of 240 events). Tables and fitness
 crossing the wire are compared exactly (JSON carries f32 values as
@@ -135,26 +137,58 @@ def test_no_history_answer(server, tmp_path):
                                           "generations_run": 0}
 
 
-@pytest.mark.parametrize("where,knob,value,what", [
-    ("search", "guidance", True, "guidance"),
-    ("search", "device_trace_dir", "/tmp/trace", "device-trace"),
-    ("ingest", "failure_pool", "/tmp/pool", "failure pool"),
-    ("ingest", "knowledge", "127.0.0.1:1", "knowledge service"),
-    ("ingest", "guidance", True, "guidance"),
+@pytest.mark.parametrize("where,knob", [
+    ("search", "guidance"),
+    ("search", "device_trace_dir"),
+    ("ingest", "failure_pool"),
+    ("ingest", "knowledge"),
+    ("ingest", "guidance"),
 ])
-def test_unported_params_are_refused(server, history, where, knob, value,
-                                     what):
-    req = search_req(history)
-    if where == "search":
-        req["search_params"] = dict(req["search_params"], **{knob: value})
-    else:
-        req["ingest_params"] = dict(INGEST_PARAMS, **{knob: value})
-    resp = request(addr(server), req)
-    assert resp["ok"] is False
-    assert resp["error"].startswith("namazu_tpu_torch: ")
-    assert resp["error"].endswith(" is not ported yet")
-    assert what in resp["error"]
-    assert request(addr(server), {"op": "ping"})["searches"] == 0
+def test_policy_knobs_are_served(history, tmp_path, where, knob):
+    """Each knob alone in a request is served by a sidecar that hosts its
+    own knowledge service (the knowledge address is itself); then the
+    reference policy with the knob on installs the table the port
+    returned."""
+    from namazu_tpu_torch.knowledge import KnowledgeService
+
+    srv = SidecarServer(port=0, device="cpu", knowledge=KnowledgeService(
+        str(tmp_path / "kpool"), device="cpu"))
+    srv.start()
+    try:
+        value = {"guidance": True,
+                 "device_trace_dir": str(tmp_path / "dt"),
+                 "failure_pool": str(tmp_path / "pool"),
+                 "knowledge": addr(srv)}[knob]
+        req = search_req(history)
+        if where == "search":
+            req["search_params"] = dict(req["search_params"],
+                                        **{knob: value})
+        else:
+            req["ingest_params"] = dict(
+                INGEST_PARAMS, knowledge_tenant="t", **{knob: value})
+        resp = request(addr(srv), req)
+        assert resp["ok"] is True and resp["generations_run"] == 4
+        search = srv.service.search_for(history.dir)
+        if knob == "guidance":
+            assert search.guidance is not None
+            assert (search.guidance.runs_observed > 0) == (where == "ingest")
+        elif knob == "device_trace_dir":
+            assert len(list((tmp_path / "dt" / "device_trace").iterdir())) \
+                == 1
+        elif knob == "failure_pool":
+            assert len(list((tmp_path / "pool").glob("*.npz"))) == 2
+        else:
+            stats = request(addr(srv), {"op": "stats"})
+            assert stats["pool_size"] == 2 and "t" in stats["tenants"]
+            # nothing pooled yet to warm-start from: its own failures
+            # were pushed first and are excluded from its pull
+            assert srv.service.ingest_counts[history.dir] == {
+                "warmstart_archive": 0}
+        assert "ingest_read_encode" in srv.service.timings[history.dir]
+        policy_knob = {knob: value if knob != "knowledge" else addr(srv)}
+        run_policy(srv, history, **policy_knob)
+    finally:
+        srv.shutdown()
 
 
 def test_several_devices_are_served_on_the_cpu(server, history):
@@ -261,26 +295,37 @@ def run_policy(server, history, **params):
             "sidecar": addr(server), "checkpoint": "side_pol.npz",
         }, **params),
     }))
-    installs = []
-    real = pol._install_tables
+    installs, answers = [], []
+    real, handle = pol._install_tables, server.service.handle
 
     def spy(delays, faults, source):
         installs.append(source)
         real(delays, faults, source)
 
+    def answered(req):
+        resp = handle(req)
+        if req.get("op") == "search":
+            answers.append(resp)
+        return resp
+
     pol._install_tables = spy
+    server.service.handle = answered
     pol.set_history_storage(jload(history.dir))
     pol.start()
     try:
         assert pol.wait_for_search(timeout=120)
     finally:
         pol.shutdown()
+        server.service.handle = handle
     assert installs == ["sidecar"]
     assert pol._search is None
     port = server.service.search_for(history.dir)
     assert port is not None
     assert np.array_equal(np.asarray(pol._delays, np.float32),
-                          port.best().delays)
+                          np.asarray(answers[-1]["delays"], np.float32))
+    if port.guidance is None:  # an unguided pick is the best seen here
+        assert np.array_equal(np.asarray(pol._delays, np.float32),
+                              port.best().delays)
     return pol, port
 
 
@@ -406,3 +451,25 @@ def test_chip_smoke_rehearses_the_island_paths(tmp_path):
                for n in launches.values())
     assert not torch.distributed.is_initialized()
     assert "generation" not in numbers["islands_faults"]  # card only
+
+
+def test_chip_smoke_rehearses_the_knowledge_path(tmp_path):
+    """chip_smoke.py's knowledge and guidance phase at a tiny size on the
+    CPU: one sidecar hosting its knowledge service, two campaigns of one
+    scenario with every knob on (B warm-starting from A's signatures and
+    coverage, its re-rank answered by the trained shared surrogate), a
+    device trace written once, launching no kernel."""
+    import chip_smoke
+
+    sp = dict(chip_smoke.POLICY_SEARCH_PARAMS, H=32, K=32, population=64,
+              fused_chunk=3)
+    ip = dict(chip_smoke.POLICY_INGEST_PARAMS, H=32)
+    launches, numbers = chip_smoke.drive_knowledge_path(
+        "cpu", str(tmp_path), generations=3, search_params=sp,
+        ingest_params=ip, runs=12, failures=4, events=200)
+    assert launches == {"knowledge_a": {"min_sq_pair": 0, "min_sq": 0},
+                        "knowledge_b": {"min_sq_pair": 0, "min_sq": 0}}
+    assert [len(numbers[c]) for c in ("knowledge_a", "knowledge_b")] \
+        == [2, 2]
+    assert all("ingest_knowledge" in n for n in numbers["knowledge_b"])
+    assert len(list((tmp_path / "trace" / "device_trace").iterdir())) == 1
