@@ -93,12 +93,34 @@ Phases, each of which fails the script on any error:
    campaign; B's first ingest folds A's signatures and coverage bits;
    the mutation bias exceeds 1; the checkpoint holds the reference's
    keys and ``guidance_feats`` [512, 20]; ``stats`` shows both tenants;
-   every returned table re-scored on the CPU gives the returned fitness.
+   every returned table re-scored on the CPU gives the returned fitness;
+12. in-process policy path: what a ``torch_search`` campaign runs between
+   two runs, the policy's search half (``namazu_tpu_torch.policy.tpu``)
+   at the policy's defaults over phase 5's history, on its own thread as
+   ``_search_once`` runs it, twice: the checkpoint's best installed
+   first, the search built and resumed from the checkpoint, ingest, 64
+   generations, re-rank, save. B1 launches 2 * 64 + 2 times; the second
+   search installs the first's checkpointed best before its own; the
+   checkpoint holds the reference's keys; the returned table re-scored on
+   the CPU gives the returned fitness; a recording sink sees the
+   phases and calls the reference's search makes (the policy's own
+   ``ingest`` and ``install`` phases are the reference's, which this
+   script does not import; it reads the history with the port's reader,
+   not through the policy's storage adapter, which
+   ``tests/test_torch_cuda.py`` times at this width); the first search's
+   ``device_trace_dir``
+   capture, taken on that thread, holds the island step's ranges
+   ``nmz_score``, ``nmz_mutate``, ``nmz_select`` with CUDA kernels inside
+   (``nmz_migrate`` too, empty on one island, and with kernels in one
+   traced chunk of 8 islands built by the policy's build); ``dcn_hosts =
+   2`` on one card is refused with the reference's message inside a
+   one-process NCCL world started from the environment.
 
 Phase 2 also holds B1 at the rollout shapes N = 256 and N = 64 (A = 512,
 F = 64, K = 256) and times it there. Several cards and several processes
 are not driven here (one card): the islands and trees of phases 9-10
-share the card. Phase 11 prints each request's wall and ingest split. The last lines are the card line, a JSON line with every
+share the card. Phases 11-12 print each request's or search's wall and
+ingest. The last lines are the card line, a JSON line with every
 kernel's numbers (launches on every path), and ``{"ok": true, "device":
 {...}}``.
 """
@@ -681,8 +703,15 @@ def device_profile(fn, steps: int) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # the island step's record_function ranges show on the device's
+    # timeline too, as annotations that are not kernels
+    ranges = {e.name for e in prof.events()
+              if getattr(e, "is_user_annotation", False)}
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in ranges]
+    check(not [e.key for e in kernels if e.key in NMZ_RANGES],
+          "the island step's ranges were counted as kernels")
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return {
@@ -1229,13 +1258,12 @@ def island_search(device, storage, sp, ip, mesh):
     history, as the sidecar builds and feeds one; returns ``(search,
     references)``."""
     from namazu_tpu_torch.history import load_storage
-    from namazu_tpu_torch.models.ingest import IngestParams, ingest_history
-    from namazu_tpu_torch.sidecar import build_search_from_params
+    from namazu_tpu_torch.models.ingest import ingest_history
+    from namazu_tpu_torch.policy.tpu import build_search, ingest_params
 
-    search = build_search_from_params(sp, device, mesh=mesh)
-    refs = ingest_history(search, load_storage(storage), IngestParams(
-        **{k: v for k, v in ip.items() if k in IngestParams._fields}))
-    return search, refs
+    search = build_search(sp, device, mesh=mesh)
+    return search, ingest_history(search, load_storage(storage),
+                                  ingest_params(ip))
 
 
 def sync(device) -> None:
@@ -1632,6 +1660,276 @@ def drive_island_paths(device, delay_storage, fault_storage,
     return launches, numbers
 
 
+# -- phase 12: the in-process policy path -----------------------------------
+
+NMZ_RANGES = ("nmz_score", "nmz_mutate", "nmz_migrate", "nmz_select")
+
+
+def ranges_and_kernels(path) -> dict:
+    """``{range: [occurrences, CUDA kernels launched inside them]}`` of
+    the island step's ranges in one ``torch.profiler`` Chrome trace: a
+    kernel is inside a range when the runtime call that launched it (the
+    same correlation id) ran on the range's thread within its span."""
+    import bisect
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    kernels = {e["args"].get("correlation") for e in events
+               if e.get("cat") == "kernel"}
+    launches = {}
+    for e in events:
+        if (e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("args", {}).get("correlation") in kernels):
+            launches.setdefault((e["pid"], e["tid"]), []).append(e["ts"])
+    for ts in launches.values():
+        ts.sort()
+    out = {r: [0, 0] for r in NMZ_RANGES}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in out:
+            ts = launches.get((e["pid"], e["tid"]), [])
+            out[e["name"]][0] += 1
+            out[e["name"]][1] += (bisect.bisect_right(ts, e["ts"] + e["dur"])
+                                  - bisect.bisect_left(ts, e["ts"]))
+    return out
+
+
+def recording_sink():
+    """A telemetry sink (``namazu_tpu_torch.obs``) that keeps the phases
+    entered and the names of the other calls, in order."""
+    import contextlib
+
+    from namazu_tpu_torch.obs import Telemetry
+
+    class Sink(Telemetry):
+        def __init__(self):
+            self.phases, self.calls = [], []
+
+        def search_phase(self, phase):
+            self.phases.append(phase)
+            return contextlib.nullcontext()
+
+        def search_round(self, *args, **kw):
+            self.calls.append("search_round")
+
+        def record_generation(self, *args, **kw):
+            self.calls.append("record_generation")
+
+        def scorer_throughput(self, *args, **kw):
+            self.calls.append("scorer_throughput")
+
+        def search_progress(self, *args, **kw):
+            self.calls.append("search_progress")
+
+        def search_device_trace(self, *args, **kw):
+            self.calls.append("search_device_trace")
+
+    return Sink()
+
+
+def policy_search(device, storage, ckpt, sp, ip, generations, sink):
+    """One search of the policy's thread as ``TPUSearchPolicy.
+    _search_once`` runs it in-process with the port's search half
+    (``namazu_tpu_torch.policy.tpu``, what the ``torch_search`` policy
+    calls): the checkpoint's best installed first (numpy alone), the
+    search built and resumed from the checkpoint, the history ingested,
+    the generations evolved, the result installed and checkpointed.
+    The policy's own ``ingest`` and ``install`` phases and its storage
+    adapter are the reference's and are not run here. Returns
+    ``(installs, search, references, seconds)``."""
+    from namazu_tpu_torch.history import load_storage
+    from namazu_tpu_torch.models.ingest import ingest_history
+    from namazu_tpu_torch.policy import tpu as pol
+
+    t0 = time.perf_counter()
+    installs = []
+    if os.path.exists(ckpt):
+        got = pol.install_from_checkpoint(ckpt, sp["H"])
+        if got is not None:
+            installs.append(("checkpoint", got[0]))
+    search = pol.build_search(sp, device)
+    search.telemetry = sink
+    if os.path.exists(ckpt):
+        search.load(ckpt)
+    if search.generations_run > 0 and not installs:
+        installs.append(("checkpoint", search.best().delays))
+    t1 = time.perf_counter()
+    refs = ingest_history(search, load_storage(storage),
+                          pol.ingest_params(ip))
+    t2 = time.perf_counter()
+    best = search.run(refs, generations=generations)
+    installs.append(("search", best))
+    search.save(ckpt)
+    return installs, search, refs, {
+        "wall": time.perf_counter() - t0, "ingest": t2 - t1,
+        "run": search.last_run_seconds,
+        "rerank": search.last_rerank_seconds}
+
+
+def on_thread(fn, *args):
+    """``fn(*args)`` on its own thread, as the policy's search runs;
+    its result, or its exception raised here."""
+    import threading
+
+    out = {}
+
+    def body():
+        try:
+            out["value"] = fn(*args)
+        except BaseException as e:  # re-raised on the caller's thread
+            out["error"] = e
+
+    t = threading.Thread(target=body, name="search")
+    t.start()
+    t.join(600)
+    check(not t.is_alive(), "the policy's search thread did not finish")
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+def drive_policy_path(device, work_dir, storage, generations=GENERATIONS,
+                      search_params=None, ingest_params=None):
+    """Phase 12: the in-process policy path over ``storage`` (phase 5's
+    history) at the policy's defaults, two searches on their own thread,
+    the second resuming from the first's checkpoint and installing its
+    best first. B1 launches 2 * generations + 2 times; the checkpoint
+    holds the reference's keys; the returned table re-scored on the CPU
+    gives the returned fitness; the sink sees the phases and calls the
+    reference's search makes; the first search's ``device_trace_dir`` capture holds the
+    island step's ranges with kernels inside (the ring's only where rows
+    move: one island moves none, so one chunk of 8 islands built by the
+    policy's build is traced as well); ``dcn_hosts = 2`` on one card is
+    refused with the reference's message inside a one-process world.
+    Returns ``(launches, numbers)``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from namazu_tpu_torch.history import load_storage
+    from namazu_tpu_torch.models.ingest import ingest_history
+    from namazu_tpu_torch.ops import pair_distance as pd
+    from namazu_tpu_torch.parallel.mesh import make_island_mesh
+    from namazu_tpu_torch.policy import tpu as pol
+
+    os.makedirs(work_dir, exist_ok=True)
+    trace_dir = os.path.join(work_dir, "trace")
+    sp = search_params or POLICY_SEARCH_PARAMS
+    ip = ingest_params or POLICY_INGEST_PARAMS
+    ckpt = os.path.join(work_dir, "search.npz")
+    sync(device)
+    pd.LAUNCHES = pd.SINGLE_LAUNCHES = 0
+    numbers, sinks, results = [], [], []
+    for r in range(2):
+        sink = recording_sink()
+        # the first run's config asks for a device trace, the second's not
+        spr = dict(sp, device_trace_dir=trace_dir if r == 0 else "")
+        installs, search, refs, secs = on_thread(
+            policy_search, device, storage, ckpt, spr, ip, generations, sink)
+        sinks.append(sink)
+        results.append((installs, search, refs))
+        numbers.append(secs)
+        best = installs[-1][1]
+        print(f"  call {r}: wall {secs['wall']:.3f} s, ingest "
+              f"{secs['ingest']:.3f} s, run {secs['run']:.4f} s "
+              f"({search.population * generations / secs['run']:.1f} "
+              f"schedules/s), re-rank {secs['rerank'] * 1e3:.2f} ms; "
+              f"installs {[k for k, _ in installs]}; fitness "
+              f"{best.fitness:.6f}, generations_run "
+              f"{search.generations_run}")
+    sync(device)
+    launches = {"min_sq_pair": pd.LAUNCHES, "min_sq": pd.SINGLE_LAUNCHES}
+    if device != "cpu":
+        check(launches["min_sq_pair"] == 2 * generations + 2,
+              f"pair kernel launched {launches['min_sq_pair']} times on "
+              f"the policy path, expected {2 * generations + 2}")
+    (i0, s0, _), (i1, s1, refs) = results
+    check([k for k, _ in i0] == ["search"], f"call 0 installed {i0}")
+    check([k for k, _ in i1] == ["checkpoint", "search"]
+          and np.array_equal(i1[0][1], s0.best().delays),
+          "call 1 did not install call 0's checkpointed table first")
+    check([s0.generations_run, s1.generations_run]
+          == [generations, 2 * generations], "generations_run is wrong")
+    check(s1._surrogate is not None, "the surrogate did not train")
+    with np.load(ckpt) as z:
+        missing = [k for k in CHECKPOINT_KEYS if k not in z.files]
+    check(not missing, f"checkpoint lacks {missing}")
+    best = i1[-1][1]
+    rescored = rescore_on_cpu(s1, refs, best.delays, best.faults)
+    check(math.isclose(rescored, best.fitness, rel_tol=RTOL, abs_tol=ATOL),
+          f"re-scored fitness {rescored} != returned {best.fitness}")
+    print(f"  returned table re-scored on the CPU: {rescored:.6f} "
+          f"(returned {best.fitness:.6f})")
+    chunks = -(-generations // sp["fused_chunk"])
+    for r, (sink, (_, search, _)) in enumerate(zip(sinks, results)):
+        phases = (["encode", "evolve"] + ["host_io"] * chunks
+                  + ["surrogate"]
+                  + ([] if search._surrogate is not None else ["extract"]))
+        calls = (["search_progress"] * chunks
+                 + (["search_device_trace"] if r == 0 else [])
+                 + ["scorer_throughput", "search_round",
+                    "record_generation"])
+        check(sink.phases == phases, f"call {r} phases {sink.phases}")
+        check(sink.calls == calls, f"call {r} telemetry {sink.calls}")
+    print(f"  telemetry: phases {sinks[0].phases}, calls "
+          f"{sorted(set(sinks[0].calls))}")
+    files = os.listdir(os.path.join(trace_dir, "device_trace"))
+    check(len(files) == 1, f"{len(files)} device traces, expected 1")
+    seen = ranges_and_kernels(os.path.join(trace_dir, "device_trace",
+                                           files[0]))
+    print(f"  device trace of call 0 (the policy's thread): "
+          f"{ {k: tuple(v) for k, v in seen.items()} } "
+          f"(occurrences, kernels inside)")
+    check(all(seen[r][0] == generations for r in NMZ_RANGES),
+          f"ranges missing from the device trace: {seen}")
+    if device != "cpu":
+        check(all(seen[r][1] > 0 for r in NMZ_RANGES if r != "nmz_migrate"),
+              f"a range of the policy thread's capture holds no kernel: "
+              f"{seen}")
+    # the ring's range where rows move: one chunk of 8 islands
+    islands = pol.build_search(sp, device,
+                               mesh=make_island_mesh(ISLANDS, device=device))
+    refs8 = ingest_history(islands, load_storage(storage),
+                           pol.ingest_params(ip))
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device != "cpu":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        islands.run(refs8, generations=sp["fused_chunk"])
+        sync(device)
+    path8 = os.path.join(work_dir, "islands_trace.json")
+    prof.export_chrome_trace(path8)
+    seen8 = ranges_and_kernels(path8)
+    print(f"  one chunk of {ISLANDS} islands: "
+          f"{ {k: tuple(v) for k, v in seen8.items()} }")
+    if device != "cpu":
+        check(all(v[1] > 0 for v in seen8.values()),
+              f"a range of the island capture holds no kernel: {seen8}")
+    del islands, refs8
+    # dcn_hosts over a one-process world: one card does not split in two
+    env = {"NMZ_TPU_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "NMZ_TPU_NUM_PROCESSES": "1", "NMZ_TPU_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        try:
+            pol.build_search(sp, device, dcn_hosts=2)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(dist.is_initialized(), "dcn_hosts started no process group")
+        check(refused == "1 devices do not divide into 2 hosts",
+              f"dcn_hosts = 2 on one card: {refused!r}")
+        print(f"  dcn_hosts = 2 in a one-process {dist.get_backend()} "
+              f"world: refused ({refused})")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    return launches, {"calls": numbers, "device_trace": seen,
+                      "islands_trace": seen8}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1717,6 +2015,12 @@ def main(argv=None) -> int:
         extra.update(knowledge)
         torch.cuda.synchronize()
         print(json.dumps({"knowledge_path": numbers}))
+        print("phase: in-process policy path")
+        extra["policy"], numbers = drive_policy_path(
+            "cuda", os.path.join(work, "policy"),
+            os.path.join(work, "history"))
+        torch.cuda.synchronize()
+        print(json.dumps({"policy_path": numbers}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for k in (pair, single):

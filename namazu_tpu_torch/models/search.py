@@ -33,6 +33,14 @@ gain. ``remote_surrogate`` (the knowledge service's shared model) scores
 the candidates while the local surrogate is too thin to train. With
 ``device_trace_dir`` set, the first fused evolve section is captured by
 ``torch.profiler`` into ``<dir>/device_trace``.
+
+A search reports to ``telemetry`` (``obs.py``; records nothing by
+default) where the reference search reports to its obs plane: the
+phases ``encode``, ``evolve`` (with the fused loop's ``host_io`` lane
+inside), ``surrogate`` and, when no candidate is picked, ``extract``,
+each also a ``nmz:<phase>`` profiler range; one round record a
+``run()``; the fused loop's throughput and best-so-far progress; each
+device-trace capture.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from namazu_tpu_torch.models.failure_pool import trace_digest
 from namazu_tpu_torch.models.ga import GAConfig, Population
 from namazu_tpu_torch.models.mcts import MCTSConfig, parallel_mcts
 from namazu_tpu_torch.models.surrogate import RewardSurrogate
+from namazu_tpu_torch.obs import NULL, search_phase
 from namazu_tpu_torch.ops import trace_encoding as te
 from namazu_tpu_torch.ops.schedule import (
     ScoreWeights,
@@ -301,6 +310,8 @@ class SearchBase:
         # both None = the unguided search
         self.guidance: Optional[CoverageMap] = None
         self.guidance_feats: Optional[np.ndarray] = None
+        # where the search reports its phases and rounds (obs.py)
+        self.telemetry = NULL
         self._upload_archives()
 
     # -- archives ----------------------------------------------------------
@@ -435,6 +446,25 @@ class SearchBase:
 
     def has_failure_signature(self, digest: str) -> bool:
         return digest in self._failure_digest_set
+
+    def _record_progress(self, generations: int, elapsed: float,
+                         schedules: float, best_fitness: float,
+                         host_io_s: Optional[float] = None,
+                         fit_curve: Optional[list] = None) -> None:
+        """One ``run()``'s round to ``telemetry``, with the archives'
+        occupancies: ``search_round`` (rates, best fitness) and
+        ``record_generation`` (the flight recorder's round, the fused
+        loop's host-I/O seconds and per-generation curve)."""
+        occupancy = dict(
+            archive_entries=min(self._archive_n, self.cfg.archive_size),
+            failure_entries=min(self._failure_n, self.cfg.failure_size),
+            distinct_failures=self.distinct_failure_signatures())
+        self.telemetry.search_round(
+            self.BACKEND, generations, elapsed, schedules=schedules,
+            best_fitness=best_fitness, host_io_s=host_io_s, **occupancy)
+        self.telemetry.record_generation(
+            self.BACKEND, generations, elapsed, best_fitness,
+            host_io_s=host_io_s, fit_curve=fit_curve, **occupancy)
 
     def labeled_archive(self):
         """``(feats [N, K'], labels [N])`` of the populated archive slots
@@ -577,6 +607,9 @@ class ScheduleSearch(SearchBase):
         self.last_fit_curve: List[float] = []
         self._surrogate: Optional[RewardSurrogate] = None
         self._device_traced = False  # the one-shot device-trace latch
+        # the best fitness of the last completed round, the floor of the
+        # progress the fused loop publishes
+        self._round_best = float("-inf")
         self._state = init_island_state(cfg.seed + 1, self.population,
                                         cfg.H, cfg.ga, mesh=self.mesh)
 
@@ -632,31 +665,56 @@ class ScheduleSearch(SearchBase):
         across calls), unless ``surrogate_topk > 0`` and the surrogate
         has trained: then the surrogate's pick among the current
         population's top-k by fitness, whose fitness may lie below
-        ``best().fitness``."""
+        ``best().fitness``. A failure inside the evolve section leaves
+        the search as the last completed ``run()`` left it: a step
+        replaces the island state and never writes into it."""
+        tel = self.telemetry
         t0 = time.perf_counter()
         encs = encoded if isinstance(encoded, (list, tuple)) else [encoded]
-        inputs = self._device_inputs(encs)
+        with search_phase(tel, "encode"):
+            inputs = self._device_inputs(encs)
         nov_scale = self.novelty_scale()
         # guided mutation: buckets of one-sided relations mutate more often
         bias = (None if self.guidance is None else torch.from_numpy(
             self.guidance.mutation_bias()).to(self.device))
-        if self.cfg.fused:
-            trace = self._start_device_trace()
+        start, host_io = self._state, None
+        t_evolve = time.perf_counter()
+        with search_phase(tel, "evolve"):
             try:
-                curve = self._run_fused(inputs, nov_scale, generations, bias)
-            finally:
-                if trace is not None:
-                    self._stop_device_trace(*trace)
-        else:
-            curve = self._run_stepwise(inputs, nov_scale, generations, bias)
-        self._sync()
+                if self.cfg.fused:
+                    trace = self._start_device_trace()
+                    try:
+                        curve, host_io = self._run_fused(
+                            inputs, nov_scale, generations, bias)
+                    finally:
+                        if trace is not None:
+                            self._stop_device_trace(*trace)
+                else:
+                    curve = self._run_stepwise(inputs, nov_scale,
+                                               generations, bias)
+                self._sync()
+            except BaseException:
+                self._state = start
+                raise
+        elapsed = time.perf_counter() - t_evolve
         self.last_run_seconds = time.perf_counter() - t0
         self.last_fit_curve = curve
         self.generations_run += generations
+        self._round_best = float(self._state.best_fitness)
+        schedules = generations * self.population
+        if self.cfg.fused:
+            tel.scorer_throughput("fused", schedules / max(elapsed, 1e-9))
+        self._record_progress(generations, elapsed, schedules,
+                              self._round_best, host_io_s=host_io,
+                              fit_curve=curve if self.cfg.fused else None)
         t0 = time.perf_counter()
-        picked = self._surrogate_pick(*inputs, nov_scale, encs=encs)
+        with search_phase(tel, "surrogate"):
+            picked = self._surrogate_pick(*inputs, nov_scale, encs=encs)
         self.last_rerank_seconds = time.perf_counter() - t0
-        return picked if picked is not None else self.best()
+        if picked is not None:
+            return picked
+        with search_phase(tel, "extract"):
+            return self.best()
 
     def _start_device_trace(self):
         """Start the one-shot ``torch.profiler`` capture of this evolve
@@ -694,6 +752,8 @@ class ScheduleSearch(SearchBase):
                 out, f"evolve_{os.getpid()}_{time.time_ns()}.json"))
         except Exception:
             log.warning("device-trace export failed", exc_info=True)
+            return
+        self.telemetry.search_device_trace(out)
 
     def _run_stepwise(self, inputs, nov_scale, generations: int,
                       bias: Optional[torch.Tensor] = None) -> List[float]:
@@ -710,13 +770,16 @@ class ScheduleSearch(SearchBase):
         return [float(v) for v in torch.stack(fits).tolist()] if fits else []
 
     def _run_fused(self, inputs, nov_scale, generations: int,
-                   bias: Optional[torch.Tensor] = None) -> List[float]:
+                   bias: Optional[torch.Tensor] = None):
         """Generations in chunks of ``fused_chunk``, each one call with no
         host sync inside. A chunk's best-fitness history is copied to the
         host asynchronously and read only after the next chunk has been
-        queued, so the host never waits on the chunk still running."""
+        queued, so the host never waits on the chunk still running.
+        Returns the per-generation curve and the seconds spent reading
+        it (the host-I/O lane)."""
         traces, pairs, archive, failures = inputs
         curve: List[float] = []
+        host_io = 0.0
         pending = None
         done = 0
         while done < generations:
@@ -728,11 +791,11 @@ class ScheduleSearch(SearchBase):
                 coin=self._dev_coin, mesh=self.mesh, rings=self._rings)
             done += g
             if pending is not None:
-                self._drain(pending, curve)
+                host_io += self._drain(pending, curve)
             pending = self._stage(fit_hist)
         if pending is not None:
-            self._drain(pending, curve)
-        return curve
+            host_io += self._drain(pending, curve)
+        return curve, host_io
 
     def _stage(self, fit_hist: torch.Tensor):
         if fit_hist.device.type != "cuda":
@@ -744,12 +807,20 @@ class ScheduleSearch(SearchBase):
         done.record()
         return host, done
 
-    @staticmethod
-    def _drain(staged, curve: List[float]) -> None:
-        host, done = staged
-        if done is not None:
-            done.synchronize()
-        curve.extend(float(v) for v in host.tolist())
+    def _drain(self, staged, curve: List[float]) -> float:
+        """Append a staged chunk's history to ``curve`` and publish the
+        best fitness so far (never below the last round's); returns the
+        seconds it took."""
+        t0 = time.perf_counter()
+        with search_phase(self.telemetry, "host_io"):
+            host, done = staged
+            if done is not None:
+                done.synchronize()
+            curve.extend(float(v) for v in host.tolist())
+            if curve:
+                self.telemetry.search_progress(
+                    self.BACKEND, max(self._round_best, max(curve)))
+        return time.perf_counter() - t0
 
     def _full_population(self) -> Population:
         """Every island's genomes, flat ``[P, H]`` on the primary device;
@@ -995,6 +1066,7 @@ class MCTSSearch(SearchBase):
         seeds = (None if self._seed_tables is None else
                  torch.from_numpy(self._seed_tables).to(self.device))
         searches = max(1, generations // 64)
+        t_evolve = time.perf_counter()
         for _ in range(searches):
             fit, d, f = parallel_mcts(
                 self._next_search_seed(), self.mesh, traces, pairs,
@@ -1005,8 +1077,12 @@ class MCTSSearch(SearchBase):
                 self._best_fitness = fit
                 self._best_delays = d.cpu().numpy()
                 self._best_faults = f.cpu().numpy()
+        elapsed = time.perf_counter() - t_evolve
         self.last_run_seconds = time.perf_counter() - t0
-        self.generations_run += searches * self.mcts_cfg.simulations
+        sims = searches * self.mcts_cfg.simulations
+        self.generations_run += sims
+        self._record_progress(sims, elapsed, sims * self.mcts_cfg.rollouts,
+                              self._best_fitness)
         return self.best()
 
     def best(self) -> BestSchedule:

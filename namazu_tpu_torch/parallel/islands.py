@@ -28,6 +28,10 @@ then migrate ring by ring and agree on the global best.
   the same islands give the same populations however they are spread
   over shards, cards and processes; all-zero coordinates keep the
   one-island stream of ``generation_seed(seed, gen)``.
+* **Ranges**: each step's parts run inside ``nmz_score``, ``nmz_mutate``,
+  ``nmz_migrate`` and ``nmz_select`` (``obs.trace_range``, the
+  reference's ``jax.named_scope``), so a
+  ``torch.profiler`` capture attributes each kernel to its part.
 
 Bit-exactness contract, as in the reference: G generations of
 :func:`fused_step` equal G calls of :func:`island_step` bit for bit.
@@ -47,6 +51,7 @@ from namazu_tpu_torch.models.ga import (
     ga_generation,
     init_population,
 )
+from namazu_tpu_torch.obs import trace_range
 from namazu_tpu_torch.ops.schedule import (
     ScoreWeights,
     TraceArrays,
@@ -294,31 +299,37 @@ def _step(state: IslandState, seed: int, inputs: dict, cfg: GAConfig,
     new_parts, cands = [], []
     for k, (sh, p) in enumerate(zip(mesh.shards, parts)):
         traces, pairs, archive, failures, coin, bias = inputs[sh.device]
-        fitness, _ = score_population_multi(
-            p.delays, traces, pairs, archive, failures, weights,
-            faults=None if coin is None else p.faults, coin=coin,
-            novelty_scale=novelty_scale)
+        with trace_range("nmz_score"):
+            fitness, _ = score_population_multi(
+                p.delays, traces, pairs, archive, failures, weights,
+                faults=None if coin is None else p.faults, coin=coin,
+                novelty_scale=novelty_scale)
         best_i = fitness.argmax()  # the first island, then the first row
         cands.append((fitness[best_i], p.delays[best_i], p.faults[best_i]))
         I = sh.islands
-        gens = None if draws is not None else [
-            generator_for(seed, state.gen, sh.device, mesh.coords(g))
-            for g in range(sh.start, sh.start + I)]
-        new_parts.append(ga_generation(
-            gens, Population(p.delays.view(I, Pi, H),
-                             p.faults.view(I, Pi, H)),
-            fitness.view(I, Pi), cfg, delay_bias=bias,
-            draws=None if draws is None else draws[k]))
-    _migrate(new_parts, mesh, ring_plan(mesh, rings, Pi, cfg), state.gen)
-    fit, best_d, best_f = global_best(cands, mesh)
-    improved = fit > state.best_fitness
+        with trace_range("nmz_mutate"):
+            gens = None if draws is not None else [
+                generator_for(seed, state.gen, sh.device, mesh.coords(g))
+                for g in range(sh.start, sh.start + I)]
+            new_parts.append(ga_generation(
+                gens, Population(p.delays.view(I, Pi, H),
+                                 p.faults.view(I, Pi, H)),
+                fitness.view(I, Pi), cfg, delay_bias=bias,
+                draws=None if draws is None else draws[k]))
+    with trace_range("nmz_migrate"):
+        _migrate(new_parts, mesh, ring_plan(mesh, rings, Pi, cfg),
+                 state.gen)
+    with trace_range("nmz_select"):
+        fit, best_d, best_f = global_best(cands, mesh)
+        improved = fit > state.best_fitness
+        best = (torch.where(improved, fit, state.best_fitness),
+                torch.where(improved, best_d, state.best_delays),
+                torch.where(improved, best_f, state.best_faults))
     return IslandState(
         pop=_join([Population(x.delays.reshape(-1, H),
                               x.faults.reshape(-1, H)) for x in new_parts]),
         gen=state.gen + 1,
-        best_fitness=torch.where(improved, fit, state.best_fitness),
-        best_delays=torch.where(improved, best_d, state.best_delays),
-        best_faults=torch.where(improved, best_f, state.best_faults),
+        best_fitness=best[0], best_delays=best[1], best_faults=best[2],
     ), fit
 
 

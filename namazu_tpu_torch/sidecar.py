@@ -7,7 +7,8 @@ over the framed JSON wire (``wire.py``) at the end of each run. This
 process answers it with the port: it reads the experiment's storage
 directory (``history.py``), runs the same ingest (``models/ingest.py``),
 evolves on the card (``models/search.py``: the GA, with the fault half
-and order mode, or the MCTS backend), saves the checkpoint in the
+and order mode, or the MCTS backend, built by ``policy/tpu.py`` as the
+in-process ``torch_search`` policy builds it), saves the checkpoint in the
 reference's keys and returns the table the policy installs. One search
 is kept per experiment key, so a campaign's later requests are warm.
 
@@ -55,20 +56,15 @@ from namazu_tpu_torch.history import load_storage
 from namazu_tpu_torch.knowledge import (
     KNOWLEDGE_OPS,
     KnowledgeService,
-    pairs_fingerprint,
     shared_client,
 )
-from namazu_tpu_torch.models.ga import GAConfig
 from namazu_tpu_torch.models.ingest import IngestParams, ingest_history
-from namazu_tpu_torch.models.mcts import MCTSConfig
-from namazu_tpu_torch.models.search import (
-    MCTSSearch,
-    ScheduleSearch,
-    SearchConfig,
-    SearchBase,
-    make_score_weights,
+from namazu_tpu_torch.models.search import SearchBase
+from namazu_tpu_torch.policy.tpu import (
+    build_search,
+    ingest_params,
+    wire_remote_surrogate,
 )
-from namazu_tpu_torch.parallel.mesh import IslandMesh
 from namazu_tpu_torch.wire import FramedServer, request  # noqa: F401
 
 log = logging.getLogger("namazu_tpu_torch.sidecar")
@@ -76,65 +72,6 @@ log = logging.getLogger("namazu_tpu_torch.sidecar")
 
 class Refused(Exception):
     """A search request the service answers with ``ok: false``."""
-
-
-def build_search_from_params(p: dict, device: DeviceLike = "cuda",
-                             mesh: Optional[IslandMesh] = None
-                             ) -> SearchBase:
-    """A search from the policy's flat params dict (the reference
-    policy's ``_search_params``), with the reference sidecar's defaults:
-    the GA, or with ``search_backend = "mcts"`` the MCTS backend, over
-    ``mesh`` or ``devices`` islands (``make_mesh(devices)`` on
-    ``device``; one by default), with causality guidance wired when
-    asked (before any checkpoint load, so archive rows and fragments stay
-    slot-aligned); raises ``ValueError`` for more cards than there are."""
-    weights = make_score_weights(
-        release_mode=p.get("release_mode", "delay"),
-        w_novelty=p.get("w_novelty", 1.0),
-        w_bug=p.get("w_bug", 1.0),
-        w_delay_cost=p.get("w_delay_cost", 0.01),
-        w_fault_cost=p.get("w_fault_cost", 0.05),
-        tau=p.get("tau", 0.005),
-        reorder_gap=p.get("reorder_gap", 0.002),
-        reorder_window=p.get("reorder_window", 0.05),
-    )
-    cfg = SearchConfig(
-        H=p.get("H", 256), L=p.get("L", 0), K=p.get("K", 256),
-        population=p.get("population", 4096),
-        migrate_k=p.get("migrate_k", 8),
-        seed=p.get("seed", 0),
-        ga=GAConfig(max_delay=p.get("max_interval", 0.1),
-                    max_fault=p.get("max_fault", 0.0)),
-        weights=weights,
-        surrogate_topk=p.get("surrogate_topk", 16),
-        min_failure_signatures=p.get("min_failure_signatures", 0),
-        novelty_floor=p.get("novelty_floor", 0.25),
-        guidance_bonus=p.get("guidance_bonus", 0.5),
-        fused=bool(p.get("fused", True)),
-        fused_chunk=int(p.get("fused_chunk", 16)),
-        migrate_every=int(p.get("migrate_every", 1)),
-        dcn_migrate_every=int(p.get("dcn_migrate_every", 1)),
-        device_trace_dir=str(p.get("device_trace_dir", "") or ""),
-    )
-    n_devices = p.get("devices")
-    if p.get("search_backend", "ga") == "mcts":
-        mcts_cfg = MCTSConfig(
-            tree_depth=p.get("mcts_tree_depth", 24),
-            n_levels=p.get("mcts_levels", 8),
-            simulations=p.get("mcts_simulations", 256),
-            rollouts=p.get("mcts_rollouts", 64),
-            max_delay=p.get("max_interval", 0.1),
-            max_fault=p.get("max_fault", 0.0),
-        )
-        search: SearchBase = MCTSSearch(cfg, mcts_cfg=mcts_cfg, mesh=mesh,
-                                        n_devices=n_devices, device=device)
-    else:
-        search = ScheduleSearch(cfg, mesh=mesh, n_devices=n_devices,
-                                device=device)
-    if p.get("guidance"):
-        search.enable_guidance(p.get("guidance_width") or None,
-                               p.get("guidance_window") or None)
-    return search
 
 
 class SearchService:
@@ -183,7 +120,7 @@ class SearchService:
             self._maybe_reload(search, checkpoint)
             return search
         try:
-            search = build_search_from_params(params, self.device)
+            search = build_search(params, self.device)
         except ValueError as e:  # e.g. more devices than cards
             raise Refused(f"search_params: {e}") from e
         if checkpoint and os.path.exists(checkpoint):
@@ -226,9 +163,7 @@ class SearchService:
     def _search(self, req: dict) -> dict:
         key = str(req.get("key") or req.get("storage") or "default")
         params = req.get("search_params") or {}
-        ip = IngestParams(**{k: v for k, v in
-                             (req.get("ingest_params") or {}).items()
-                             if k in IngestParams._fields})
+        ip = ingest_params(req.get("ingest_params") or {})
         with self._key_lock(key):
             return self._search_locked(key, req, params, ip)
 
@@ -245,11 +180,9 @@ class SearchService:
             # the candidate re-rank may consult the shared surrogate while
             # the local one is too thin, possibly over this sidecar's own
             # loopback (each connection has its own handler thread)
-            kc = shared_client(ip.knowledge, tenant=ip.knowledge_tenant,
-                               scenario=ip.knowledge_scenario)
-            search.remote_surrogate = (
-                lambda feats, _c=kc, _s=search:
-                    _c.predict(feats, pairs_fp=pairs_fingerprint(_s.pairs)))
+            wire_remote_surrogate(search, shared_client(
+                ip.knowledge, tenant=ip.knowledge_tenant,
+                scenario=ip.knowledge_scenario))
         stats: Dict[str, float] = {}
         t0 = time.perf_counter()
         references = ingest_history(search, storage, ip, stats=stats)

@@ -6,8 +6,10 @@ the card against the CPU (ranks and drop counts exactly), and an MCTS
 search that launches B1 once per simulation, and phases 9-10 in small (8
 islands on the card launching B1 once a generation, layout independence
 on the card, 8 lockstep MCTS trees with one launch and one sync a
-simulation). Every test needs a CUDA card and skips without one; on a
-machine with a card run
+simulation), a campaign of the ``torch_search`` policy through the
+CLI (``namazu_tpu_torch_policy.py``) searching on the card, and that
+policy's ingest at full width timed against the port's. Every test
+needs a CUDA card and skips without one; on a machine with a card run
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
@@ -16,6 +18,11 @@ import no JAX.) Tolerance: rtol 1e-3 / atol 1e-4 (f32 sums in another
 order), TF32 off. Where distances cancel to 0 (duplicate rows) the f32
 plain version is itself ~1.5e-4 from exact, so those cases hold the
 kernels to the plain version run in float64."""
+
+import json
+import os
+import socket
+import sys
 
 import numpy as np
 import pytest
@@ -351,3 +358,154 @@ def test_eight_trees_on_the_card_share_a_launch_and_a_sync(card):
     assert syncs == cfg.simulations
     assert len(res) == 8 and all(r.tree_visits[0] == cfg.simulations
                                  for r in res)
+
+
+# -- the torch_search policy's campaign ------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SEND = """
+import sys
+from namazu_tpu.inspector.transceiver import new_transceiver
+from namazu_tpu.signal import PacketEvent
+
+ts = {e: new_transceiver(sys.argv[1], e) for e in "abc"}
+for t in ts.values():
+    t.start()
+for i in range(24):
+    e = "abc"[i % 3]
+    ev = PacketEvent.create(e, e, "peer", hint=f"{e}:{i % 4}")
+    ts[e].send_event(ev).get(timeout=30)
+for t in ts.values():
+    t.shutdown()
+"""
+#: tests/test_tpu_policy.py's sizes
+POLICY_PARAMS = {"max_interval": 30, "generations": 6, "population": 128,
+                 "hint_buckets": 32, "trace_length": 64,
+                 "feature_pairs": 32, "seed": 11,
+                 "checkpoint": "search.npz"}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def campaign(tmp_path, platform: str) -> None:
+    """``init``, two runs recorded under ``random`` (24 packet events
+    each, sent through the REST wire by the run script), then two
+    ``run``s with ``explore_policy = "torch_search"`` loaded through
+    ``policy_plugins`` on ``platform``: the first evolves and
+    checkpoints, the second installs that checkpoint's schedule before
+    its own search. Imports no JAX."""
+    from namazu_tpu.cli import cli_main
+    from namazu_tpu.storage import load_storage
+
+    port = _free_port()
+    materials = tmp_path / "materials"
+    materials.mkdir()
+    (materials / "send.py").write_text(SEND)
+    (materials / "run.sh").write_text(
+        f"#!/bin/sh\nexport PYTHONPATH=\"{REPO}\"\n"
+        f"{sys.executable} \"$NMZ_MATERIALS_DIR/send.py\" "
+        f"http://127.0.0.1:{port} && touch \"$NMZ_WORKING_DIR/ok\"\n")
+    (materials / "validate.sh").write_text(
+        "#!/bin/sh\ntest -f \"$NMZ_WORKING_DIR/ok\"\n")
+    head = (f"rest_port = {port}\n"
+            'run = "sh $NMZ_MATERIALS_DIR/run.sh"\n'
+            'validate = "sh $NMZ_MATERIALS_DIR/validate.sh"\n')
+    config = tmp_path / "config.toml"
+    config.write_text(head + 'explore_policy = "random"\n'
+                      "[explore_policy_param]\nmax_interval = 5\n")
+    storage = tmp_path / "storage"
+    assert cli_main(["init", str(config), str(materials), str(storage)]) == 0
+    for _ in range(2):
+        assert cli_main(["run", str(storage)]) == 0
+    knobs = dict(POLICY_PARAMS, platform=platform)
+    (storage / "config.toml").write_text(
+        head + 'explore_policy = "torch_search"\n'
+        'policy_plugins = ["namazu_tpu_torch_policy"]\n'
+        "[explore_policy_param]\n"
+        + "".join(f"{k} = {json.dumps(v)}\n" for k, v in knobs.items()))
+    for _ in range(2):
+        assert cli_main(["run", str(storage)]) == 0
+    st = load_storage(str(storage))
+    assert st.nr_stored_histories() == 4
+    assert all(st.is_successful(i) and len(st.get_stored_history(i)) == 24
+               for i in range(4))
+    with np.load(storage / "search.npz") as z:
+        assert int(z["generations_run"]) == 12
+    # one process ran every run: keep each run's own tagged lines
+    logs = ["".join(line for line in open(storage / f"{i:08x}" / "nmz.log")
+                    if f"[{i:08x}]" in line) for i in (2, 3)]
+    assert "installed searched schedule" in logs[0]
+    assert "installed checkpointed schedule" not in logs[0]
+    assert logs[1].index("installed checkpointed schedule") < \
+        logs[1].index("installed searched schedule")
+
+
+def test_torch_search_campaign_searches_on_the_card(card, tmp_path):
+    """The campaign with ``platform`` unset: both searches run on the
+    card, B1 launching once a generation (6 each; two successful runs
+    leave the surrogate untrained, so no re-rank launch)."""
+    before = pd.LAUNCHES
+    campaign(tmp_path, "")
+    assert pd.LAUNCHES - before == 2 * POLICY_PARAMS["generations"]
+
+
+def test_policy_ingest_at_full_width_on_the_card(card, tmp_path):
+    """The ``torch_search`` policy's own ingest (the reference's storage
+    reader, the shim's adapter to ``ActionRecord``s, the port's ingest)
+    over chip_smoke.py's phase-5 history at full width (48 runs of 2000
+    events, the policy's defaults: population 4096, H = K = 256), in
+    turns with the port's ingest over the port's reader of the same
+    directory: both return the same references and fill the archives
+    alike. Prints each ingest's seconds (run with ``-s``)."""
+    import time
+
+    import chip_smoke
+    from namazu_tpu.policy import create_policy
+    from namazu_tpu.policy.plugins import load_policy_plugins
+    from namazu_tpu.storage import load_storage
+    from namazu_tpu.utils.config import Config
+    from namazu_tpu_torch.history import load_storage as port_storage
+    from namazu_tpu_torch.models.ingest import ingest_history
+    from namazu_tpu_torch.policy.tpu import ingest_params
+
+    history = chip_smoke.write_history(str(tmp_path / "history"))
+    load_policy_plugins(Config({"policy_plugins":
+                                ["namazu_tpu_torch_policy"]}))
+    pol = create_policy("torch_search")
+    pol.load_config(Config({"explore_policy_param": {}}))
+    pol.set_history_storage(load_storage(history))
+    ip = ingest_params(pol._ingest_params()._asdict())
+
+    def port():
+        search = pol._build_search()
+        t0 = time.perf_counter()
+        refs = ingest_history(search, port_storage(history), ip)
+        return time.perf_counter() - t0, search, refs
+
+    def policy():
+        search = pol._build_search()
+        t0 = time.perf_counter()
+        refs = pol._ingest_history(search)
+        return time.perf_counter() - t0, search, refs
+
+    seconds, last = {"port": [], "policy": []}, {}
+    for name, fn in (("port", port), ("policy", policy),
+                     ("policy", policy), ("port", port)):
+        secs, *last[name] = fn()
+        seconds[name].append(secs)
+    (ps, prefs), (qs, qrefs) = last["port"], last["policy"]
+    assert len(prefs) == len(qrefs) == 4
+    for x, y in zip(prefs, qrefs):
+        for name in ("hint_ids", "entity_ids", "arrival", "mask",
+                     "faultable"):
+            assert np.array_equal(getattr(x, name), getattr(y, name))
+    assert ps._archive_n == qs._archive_n > 0
+    assert np.array_equal(ps.archive, qs.archive)
+    assert np.array_equal(ps.failures, qs.failures)
+    print(f"\ningest at full width, {torch.cuda.get_device_name(0)}: "
+          f"port reader {seconds['port']} s, policy (reference reader + "
+          f"adapter) {seconds['policy']} s")

@@ -154,6 +154,48 @@ def test_fused_equals_stepwise_bit_for_bit_across_runs():
     assert fused.generations_run == 9
 
 
+@pytest.mark.parametrize("chunk", [16, 4])
+def test_a_failure_mid_chunk_keeps_the_last_round(monkeypatch, chunk):
+    """The island step raising at generation 5 of a 16-generation round
+    (inside one chunk of 16, or in the second chunk of 4) leaves the
+    search as the last completed round left it: ``best()``, the state and
+    ``generations_run``; the next round then gives what a search that
+    never failed gives, bit for bit (the counterpart of the reference's
+    ``_recover_state``)."""
+    encs = refs(tte)
+    searches = []
+    for _ in range(2):
+        s = tsearch.ScheduleSearch(port_cfg(fused_chunk=chunk),
+                                   device="cpu")
+        seed_archives(s, tte)
+        s.run(encs, generations=16)
+        searches.append(s)
+    failing, clean = searches
+    before, state = failing.best(), failing._state
+    real, calls = tisl._step, []
+
+    def step(*a, **kw):
+        calls.append(1)
+        if len(calls) == 5:
+            raise RuntimeError("out of memory")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tisl, "_step", step)
+    with pytest.raises(RuntimeError, match="out of memory"):
+        failing.run(encs, generations=16)
+    monkeypatch.setattr(tisl, "_step", real)
+    after = failing.best()
+    assert after.fitness == before.fitness
+    assert np.array_equal(after.delays, before.delays)
+    assert failing._state is state and failing._state.gen == 16
+    assert failing.generations_run == 16
+    a, b = failing.run(encs, generations=16), clean.run(encs,
+                                                         generations=16)
+    assert a.fitness == b.fitness and np.array_equal(a.delays, b.delays)
+    assert torch.equal(failing._state.pop.delays, clean._state.pop.delays)
+    assert failing.generations_run == 32
+
+
 def test_search_end_to_end_rescored_by_reference():
     s = tsearch.ScheduleSearch(port_cfg(fused_chunk=4), device="cpu")
     seed_archives(s, tte)
@@ -264,12 +306,14 @@ def test_resident_traces_append_and_rebuild():
 
 @pytest.mark.parametrize("what", ["device_trace_dir", "guidance"])
 def test_search_params_build_guidance_and_device_trace(what, tmp_path):
-    """The sidecar's ``build_search_from_params`` wires what the
-    reference's does: the guidance map (before any checkpoint load) and
-    the device-trace directory, whose first fused run writes one trace
-    and later runs none."""
+    """The port's ``build_search`` (the sidecar's and the policy's build)
+    wires what the reference sidecar's ``build_search_from_params`` does:
+    the guidance map (before any checkpoint load) and the device-trace
+    directory, whose first fused run writes one trace and later runs
+    none."""
     from namazu_tpu.sidecar import build_search_from_params as jbuild
-    from namazu_tpu_torch.sidecar import build_search_from_params
+    from namazu_tpu_torch.policy.tpu import \
+        build_search as build_search_from_params
 
     params = {"H": H, "K": K, "population": 64, "fused_chunk": 2}
     if what == "guidance":
@@ -320,6 +364,9 @@ def _imports(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_the_reference_package():
+    """The package and chip_smoke.py import neither JAX nor the
+    reference, nor the policy shim (the one file that imports the
+    reference)."""
     files = sorted((REPO / "namazu_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
@@ -327,7 +374,15 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         for name in _imports(f):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "namazu_tpu", "flax",
-                                "optax"), f"{f}: imports {name}"
+                                "optax", "namazu_tpu_torch_policy"), \
+                f"{f}: imports {name}"
+
+
+def test_the_policy_shim_imports_no_jax():
+    roots = {name.split(".")[0]
+             for name in _imports(REPO / "namazu_tpu_torch_policy.py")}
+    assert {"namazu_tpu", "namazu_tpu_torch"} <= roots
+    assert not roots & {"jax", "jaxlib", "flax", "optax"}
 
 
 # -- surrogate re-rank and the pair refit ----------------------------------

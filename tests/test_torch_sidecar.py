@@ -473,3 +473,28 @@ def test_chip_smoke_rehearses_the_knowledge_path(tmp_path):
         == [2, 2]
     assert all("ingest_knowledge" in n for n in numbers["knowledge_b"])
     assert len(list((tmp_path / "trace" / "device_trace").iterdir())) == 1
+
+
+def test_chip_smoke_rehearses_the_policy_path(tmp_path):
+    """chip_smoke.py's phase 12 at a tiny size on the CPU: two searches
+    of the policy's search half, each on its own thread, over one
+    history, the second resuming from the first's checkpoint and
+    installing its best first; the sink sees the phases and calls the
+    reference's search makes, the device trace holds the island step's ranges once a
+    generation, ``dcn_hosts = 2`` is refused inside a one-process gloo
+    world, and no kernel launches."""
+    import chip_smoke
+
+    sp = dict(chip_smoke.POLICY_SEARCH_PARAMS, H=32, K=32, population=128,
+              fused_chunk=3)
+    ip = dict(chip_smoke.POLICY_INGEST_PARAMS, H=32)
+    storage = chip_smoke.write_history(str(tmp_path / "h"), runs=12,
+                                       failures=4, events=200)
+    launches, numbers = chip_smoke.drive_policy_path(
+        "cpu", str(tmp_path / "p"), storage, generations=5,
+        search_params=sp, ingest_params=ip)
+    assert launches == {"min_sq_pair": 0, "min_sq": 0}
+    assert len(numbers["calls"]) == 2
+    assert {k: v[0] for k, v in numbers["device_trace"].items()} == {
+        r: 5 for r in chip_smoke.NMZ_RANGES}
+    assert not torch.distributed.is_initialized()
