@@ -114,14 +114,37 @@ Phases, each of which fails the script on any error:
    (``nmz_migrate`` too, empty on one island, and with kernels in one
    traced chunk of 8 islands built by the policy's build); ``dcn_hosts =
    2`` on one card is refused with the reference's message inside a
-   one-process NCCL world started from the environment.
+   one-process NCCL world started from the environment;
+13. observed sidecar: ``namazu_tpu_torch_sidecar.py`` (the port's
+   ``nmz-tpu sidecar``, which imports the reference's observability
+   plane; this script imports neither it nor the reference) started as a
+   child process on the card with a knowledge pool and
+   ``--telemetry-url`` at a framed push target hosted here, read only
+   over its wire: phase 5's request twice on one keep-alive connection
+   over phase 5's history (both carry ``device_trace_dir``; the capture
+   is one-shot), then a knowledge ``stats`` op. Every answer is ok,
+   ``generations_run`` is 64 then 128, the returned table re-scored on
+   the CPU from the child's checkpoint gives the returned fitness; the
+   child's capture of request 0 holds B1 inside each of the 64
+   ``nmz_score`` ranges; the ``metrics`` op counts 2 search requests, 1
+   ``stats``, 128 GA generations, the search's phases and a scorer
+   rate; the ``fleet`` op lists job ``sidecar``; the ``profile`` op has
+   samples and stacks under ``ingest_history`` (their share and the top
+   self-time frames are printed); the push target receives a doc of job
+   ``sidecar`` counting both searches within 3 relay intervals. The
+   requests' walls and seconds by phase print beside phase 5's of the
+   same call; then the package's own sidecar (no sink, relay or
+   profiler) starts as a second child, and warm requests go to the two
+   in turns for the plane's cost. The children are terminated in any
+   case, their logs printed when a check fails.
 
 Phase 2 also holds B1 at the rollout shapes N = 256 and N = 64 (A = 512,
 F = 64, K = 256) and times it there. Several cards and several processes
 are not driven here (one card): the islands and trees of phases 9-10
 share the card. Phases 11-12 print each request's or search's wall and
 ingest. The last lines are the card line, a JSON line with every
-kernel's numbers (launches on every path), and ``{"ok": true, "device":
+kernel's numbers (launches on every path; phase 13's are the kernels in
+the child's capture), and ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -899,13 +922,14 @@ def time_host_ingest(storage_dir, H=H) -> None:
 
 
 def sidecar_requests(device, work_dir, storage, generations=GENERATIONS,
-                     search_params=None, ingest_params=None):
+                     search_params=None, ingest_params=None, walls=None):
     """Two search requests over one keep-alive connection to the port's
     sidecar on ``device``, the launch counts set to 0 just before them
     and read just after, and the checks every path shares: generations,
     tables, checkpoint keys, B1's launches and a re-score on the CPU of
-    the returned table. Returns ``(launches, search, references, the
-    second response)``."""
+    the returned table; each request's wall is appended to ``walls``
+    when given. Returns ``(launches, search, references, the second
+    response)``."""
     import numpy as np
 
     from namazu_tpu_torch import wire
@@ -941,6 +965,8 @@ def sidecar_requests(device, work_dir, storage, generations=GENERATIONS,
                 check(resp is not None and resp.get("ok") is True,
                       f"sidecar request {r} failed: {resp}")
                 resps.append(resp)
+                if walls is not None:
+                    walls.append(wall)
                 tm = server.service.timings[storage]
                 search = server.service.search_for(storage)
                 if mcts:
@@ -1000,15 +1026,17 @@ def sidecar_requests(device, work_dir, storage, generations=GENERATIONS,
 
 
 def drive_sidecar_path(device, work_dir, generations=GENERATIONS,
-                       search_params=None, ingest_params=None, **history):
+                       search_params=None, ingest_params=None, walls=None,
+                       **history):
     """Phase 5: a history written under ``work_dir`` and two requests at
-    the policy's defaults; returns the kernel launches they made."""
+    the policy's defaults (their walls appended to ``walls`` when given);
+    returns the kernel launches they made."""
     t0 = time.perf_counter()
     storage = write_history(os.path.join(work_dir, "history"), **history)
     print(f"  wrote {storage}: {time.perf_counter() - t0:.2f} s")
     launches, search, _, _ = sidecar_requests(
         device, work_dir, storage, generations, search_params,
-        ingest_params)
+        ingest_params, walls)
     time_host_ingest(storage, search.cfg.H)
     return launches
 
@@ -1665,18 +1693,21 @@ def drive_island_paths(device, delay_storage, fault_storage,
 NMZ_RANGES = ("nmz_score", "nmz_mutate", "nmz_migrate", "nmz_select")
 
 
-def ranges_and_kernels(path) -> dict:
+def ranges_and_kernels(path, kernel_names=None) -> dict:
     """``{range: [occurrences, CUDA kernels launched inside them]}`` of
     the island step's ranges in one ``torch.profiler`` Chrome trace: a
     kernel is inside a range when the runtime call that launched it (the
-    same correlation id) ran on the range's thread within its span."""
+    same correlation id) ran on the range's thread within its span. With
+    ``kernel_names`` only kernels whose name holds one of them count."""
     import bisect
 
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X"]
     kernels = {e["args"].get("correlation") for e in events
-               if e.get("cat") == "kernel"}
+               if e.get("cat") == "kernel" and (
+                   kernel_names is None
+                   or any(k in e.get("name", "") for k in kernel_names))}
     launches = {}
     for e in events:
         if (e.get("cat") in ("cuda_runtime", "cuda_driver")
@@ -1930,6 +1961,403 @@ def drive_policy_path(device, work_dir, storage, generations=GENERATIONS,
                       "islands_trace": seen8}
 
 
+# -- phase 13: the observed sidecar, a process of its own --------------------
+
+SHIM = "namazu_tpu_torch_sidecar.py"  # the port's nmz-tpu sidecar
+# each kernel's name in a trace, demangled or not
+KERNEL_NAMES = {"min_sq_pair": ("min_sq_kernel<2>", "min_sq_kernelILi2E"),
+                "min_sq": ("min_sq_kernel<1>", "min_sq_kernelILi1E")}
+RELAY_INTERVAL_S = 2.0  # the shim's relay pushes every 2 s
+SHIM_TURNS = "sppssp"  # warm requests: s the shim, p the package's sidecar
+CHILD_READY_S = 240.0  # a child sidecar answers a ping within this
+REQUEST_S = 600.0  # a child's request answers within this
+SEARCH_PHASES = ("encode", "evolve", "host_io", "surrogate", "extract")
+
+
+class PushTarget:
+    """A framed telemetry push target on the port's wire: each
+    ``telemetry`` doc is acknowledged as the reference's aggregator
+    acknowledges a fresh one, ``{"ok": true, "last_seq": seq}``, and
+    kept with the time it came."""
+
+    def __init__(self):
+        import threading
+
+        from namazu_tpu_torch.wire import FramedServer
+
+        self.docs = []
+        self._lock = threading.Lock()
+        self._srv = FramedServer(self._handle, name="push-target")
+        self.port = self._srv.bind_tcp("127.0.0.1", 0)
+        self._srv.start()
+
+    def _handle(self, req: dict) -> dict:
+        doc = req.get("doc")
+        if req.get("op") != "telemetry" or not isinstance(doc, dict):
+            return {"ok": False, "error": f"unknown op {req.get('op')!r}"}
+        with self._lock:
+            self.docs.append((time.monotonic(), doc))
+        return {"ok": True, "last_seq": doc.get("seq")}
+
+    def received(self) -> list:
+        with self._lock:
+            return list(self.docs)
+
+    def shutdown(self) -> None:
+        self._srv.shutdown()
+
+
+def sample(families: list, name: str, stat: str = "count", **labels):
+    """The value of ``name{labels}`` in a list of wire families (a
+    ``metrics`` answer's or a pushed doc's); of a histogram its ``stat``
+    (``count`` or ``sum``); None when absent."""
+    for fam in families:
+        if fam["name"] != name:
+            continue
+        for s in fam["samples"]:
+            if s["labels"] == labels:
+                v = s.get("value", s.get(stat))
+                return v[stat] if isinstance(v, dict) else v
+    return None
+
+
+def phase_seconds(addr) -> dict:
+    """The seconds each search phase has taken so far in the sidecar at
+    ``addr``, read with its ``metrics`` op (which counts no request)."""
+    from namazu_tpu_torch import wire
+
+    fams = wire.request(addr, {"op": "metrics"})["metrics"]["metrics"]
+    return {p: sample(fams, "nmz_search_phase_seconds", stat="sum",
+                      phase=p) or 0.0 for p in SEARCH_PHASES}
+
+
+def profile_shares(profile: dict, collapsed: str):
+    """From the ``profile`` op's two answers: the samples whose stack
+    holds ``ingest_history``, of all and of those on a thread serving a
+    search (``_search_locked`` on the stack), and the top 5 self-time
+    frames of each. Returns ``(numbers, ingest lines of the collapsed
+    text)``."""
+    stacks = profile["stacks"]
+
+    def count(pred):
+        return sum(s["count"] for s in stacks if pred(s["stack"]))
+
+    def holds(frame):
+        return lambda st: any(f.endswith(":" + frame) for f in st)
+
+    def top(pred):
+        selfs = {}
+        for s in stacks:
+            if s["stack"] and pred(s["stack"]):
+                leaf = s["stack"][-1]
+                selfs[leaf] = selfs.get(leaf, 0) + s["count"]
+        return sorted(selfs.items(), key=lambda kv: -kv[1])[:5]
+
+    total = count(lambda st: True)
+    serving = count(holds("_search_locked"))
+    ingest = count(holds("ingest_history"))
+    lines = [ln for ln in collapsed.splitlines() if ":ingest_history" in ln]
+    return {"samples": total, "serving": serving, "ingest": ingest,
+            "ingest_share_of_all": ingest / total if total else 0.0,
+            "ingest_share_of_serving": ingest / serving if serving else 0.0,
+            "top_self": top(lambda st: True),
+            "top_self_serving": top(holds("_search_locked"))}, lines
+
+
+class Child:
+    """A sidecar in a process of its own, started from the repository
+    root with its output in ``log_path``; :meth:`start` waits until it
+    answers ``ping`` (or fails), :meth:`stop` terminates it."""
+
+    def __init__(self, name: str, argv: list, addr: str, log_path: str):
+        self.name, self.argv, self.addr = name, argv, addr
+        self.log_path = log_path
+        self.proc = None
+
+    def start(self, ready_s: float) -> float:
+        """Seconds until the child answered ``ping``."""
+        from namazu_tpu_torch import wire
+
+        with open(self.log_path, "w") as log_file:
+            self.proc = subprocess.Popen(
+                self.argv, cwd=ROOT, stdin=subprocess.DEVNULL,
+                stdout=log_file, stderr=log_file)
+        t0 = time.perf_counter()
+        while True:
+            self.check_alive()
+            try:
+                if wire.request(self.addr, {"op": "ping"}, timeout=5)["ok"]:
+                    return time.perf_counter() - t0
+            except OSError:
+                pass
+            check(time.perf_counter() - t0 < ready_s,
+                  f"the {self.name} did not answer in {ready_s:.0f} s")
+            time.sleep(0.25)
+
+    def check_alive(self) -> None:
+        check(self.proc.poll() is None,
+              f"the {self.name} exited with {self.proc.returncode}")
+
+    def log_tail(self, n: int = 4000) -> str:
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    def stop(self) -> None:
+        if self.proc is None:
+            return
+        self.proc.terminate()
+        try:
+            self.proc.wait(30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(30)
+
+
+def timed_request(addr: str, req: dict, timeout: float):
+    """``(response, wall seconds)`` of one request on a fresh
+    connection; a response other than ``ok`` fails the phase."""
+    from namazu_tpu_torch import wire
+
+    t0 = time.perf_counter()
+    resp = wire.request(addr, req, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(resp.get("ok") is True, f"request to {addr} failed: {resp}")
+    return resp, wall
+
+
+def drive_shim_path(device, work_dir, storage, generations=GENERATIONS,
+                    search_params=None, ingest_params=None, walls5=None):
+    """Phase 13: ``namazu_tpu_torch_sidecar.py``, the port's ``nmz-tpu
+    sidecar``, as a child process on ``device`` with a knowledge pool and
+    ``--telemetry-url`` at a push target hosted here, read only over its
+    wire: phase 5's request twice on one keep-alive connection over
+    ``storage`` (both carry ``device_trace_dir``, so the search stays
+    warm; the capture is one-shot), one knowledge ``stats`` op, then the
+    ``metrics``, ``fleet`` and ``profile`` ops. Then the plane's cost:
+    the package's own sidecar (``python -m namazu_tpu_torch.sidecar``:
+    no sink, relay or profiler) as a second child, its first request
+    cold and untraced, then warm requests to the two in ``SHIM_TURNS``
+    (``s`` the shim, ``p`` the package's): the control for the plane's
+    cost. Every check is fatal; the children
+    are terminated in any case and their logs printed when a check
+    fails. ``walls5``: phase 5's request walls of this call, printed
+    beside these. Returns the phase's numbers; its ``traced_launches``
+    are the kernels inside the island step's ranges of the child's one
+    captured section (request 0's evolve), not of whole requests."""
+    import numpy as np
+
+    from namazu_tpu_torch import wire
+    from namazu_tpu_torch.policy import tpu as pol
+
+    os.makedirs(work_dir, exist_ok=True)
+    sp = dict(search_params or POLICY_SEARCH_PARAMS,
+              device_trace_dir=os.path.join(work_dir, "trace"))
+    ip = ingest_params or POLICY_INGEST_PARAMS
+    ckpt = os.path.join(work_dir, "search.npz")
+    port = _free_port()
+    addr = f"127.0.0.1:{port}"
+    target = PushTarget()
+    argv = [sys.executable, os.path.join(ROOT, SHIM), "--listen", addr,
+            "--pool-dir", os.path.join(work_dir, "pool"),
+            "--telemetry-url", f"tcp://127.0.0.1:{target.port}"]
+    if device == "cpu":
+        argv += ["--platform", "cpu"]
+    children = [Child("shim sidecar", argv, addr,
+                      os.path.join(work_dir, "shim.log"))]
+    numbers = {}
+    try:
+        numbers["ready_s"] = children[0].start(CHILD_READY_S)
+        print(f"  shim sidecar (pid {children[0].proc.pid}) answering on "
+              f"{addr} after {numbers['ready_s']:.2f} s")
+        req = {"op": "search", "key": storage, "storage": storage,
+               "search_params": sp, "ingest_params": ip,
+               "generations": generations, "checkpoint": ckpt}
+        resps, walls, split = [], [], []
+        before = phase_seconds(addr)
+        with socket.create_connection(("127.0.0.1", port),
+                                      timeout=REQUEST_S) as sk:
+            for r in range(2):
+                t1 = time.perf_counter()
+                wire.write_frame(sk, req)
+                resp = wire.read_frame(sk)
+                walls.append(time.perf_counter() - t1)
+                check(resp is not None and resp.get("ok") is True,
+                      f"shim request {r} failed: {resp}")
+                resps.append(resp)
+                # each request's phases, and the rest of its wall (the
+                # search's build, ingest, checkpoint save, the wire);
+                # host_io runs inside evolve
+                after = phase_seconds(addr)
+                secs = {p: after[p] - before[p] for p in SEARCH_PHASES}
+                secs["rest"] = walls[-1] - sum(
+                    v for p, v in secs.items() if p != "host_io")
+                split.append(secs)
+                before = after
+            done = time.monotonic()
+            wire.write_frame(sk, {"op": "stats"})
+            stats = wire.read_frame(sk)
+        check(stats is not None and stats.get("ok") is True,
+              f"shim stats failed: {stats}")
+        numbers["walls"], numbers["split"] = walls, split
+        print(f"  requests: walls {walls[0]:.3f} s (traced), "
+              f"{walls[1]:.3f} s; phase 5's in this call: {walls5}; "
+              f"stats: pool {stats['pool_size']}")
+        for r, secs in enumerate(split):
+            print(f"  request {r} seconds by phase: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+        r0, r1 = resps
+        check([r0["generations_run"], r1["generations_run"]]
+              == [generations, 2 * generations], "generations_run is wrong")
+        for r in resps:
+            check(len(r["delays"]) == sp["H"] and len(r["faults"]) == sp["H"]
+                  and math.isfinite(r["fitness"]), "bad table in a response")
+        # the child's search, as its checkpoint left it, on the CPU here
+        search = pol.build_search(dict(sp, device_trace_dir=""), "cpu")
+        search.load(ckpt)
+        refs = newest_references(storage, H=sp["H"])
+        rescored = rescore_on_cpu(search, refs, r1["delays"], r1["faults"])
+        check(math.isclose(rescored, r1["fitness"], rel_tol=RTOL,
+                           abs_tol=ATOL),
+              f"re-scored fitness {rescored} != returned {r1['fitness']}")
+        with np.load(ckpt) as z:
+            missing = [k for k in CHECKPOINT_KEYS if k not in z.files]
+        check(not missing, f"checkpoint lacks {missing}")
+        print(f"  returned table re-scored on the CPU from the child's "
+              f"checkpoint: {rescored:.6f} (returned {r1['fitness']:.6f})")
+        # B1 in the child: one launch inside each generation's nmz_score
+        tdir = os.path.join(sp["device_trace_dir"], "device_trace")
+        files = os.listdir(tdir)
+        check(len(files) == 1, f"{len(files)} device traces, expected 1")
+        trace = os.path.join(tdir, files[0])
+        inside = {k: ranges_and_kernels(trace, names)
+                  for k, names in KERNEL_NAMES.items()}
+        seen = inside["min_sq_pair"]["nmz_score"]
+        numbers["trace_nmz_score"] = seen
+        numbers["traced_launches"] = {
+            k: sum(n for _, n in r.values()) for k, r in inside.items()}
+        print(f"  the child's capture of request 0: nmz_score {seen[0]} "
+              f"times, B1 launched {seen[1]} times inside; kernels inside "
+              f"the ranges {numbers['traced_launches']}")
+        check(seen[0] == generations,
+              f"nmz_score {seen[0]} times in the capture, expected "
+              f"{generations}")
+        if device != "cpu":
+            check(seen[1] == generations,
+                  f"B1 launched {seen[1]} times inside nmz_score in the "
+                  f"child's capture, expected {generations}")
+        # the metrics op: requests, generations, phases, throughput
+        fams = wire.request(addr, {"op": "metrics"})["metrics"]["metrics"]
+        searches = sample(fams, "nmz_sidecar_requests_total", ok="true",
+                          op="search")
+        stats_n = sample(fams, "nmz_sidecar_requests_total", ok="true",
+                         op="stats")
+        gens = sample(fams, "nmz_search_generations_total", backend="ga")
+        phases = {p: sample(fams, "nmz_search_phase_seconds", phase=p)
+                  for p in SEARCH_PHASES}
+        rate = sample(fams, "nmz_scorer_schedules_per_sec", source="fused")
+        numbers.update(metrics_searches=searches, metrics_stats=stats_n,
+                       generations=gens, phases=phases, schedules_per_s=rate)
+        print(f"  metrics: search requests {searches}, stats {stats_n}, "
+              f"generations {gens}, phase counts {phases}, scorer "
+              f"{rate} schedules/s")
+        check(searches == 2 and stats_n == 1,
+              f"nmz_sidecar_requests_total: search {searches}, stats "
+              f"{stats_n}, expected 2 and 1")
+        check(gens == 2 * generations,
+              f"nmz_search_generations_total {gens}, expected "
+              f"{2 * generations}")
+        chunks = -(-generations // sp["fused_chunk"])
+        # extract runs only when the surrogate does not pick
+        check(phases["encode"] == phases["evolve"] == phases["surrogate"]
+              == 2 and phases["host_io"] == 2 * chunks
+              and (phases["extract"] or 0) <= 2,
+              f"nmz_search_phase_seconds counts {phases}")
+        check(rate is not None and rate > 0,
+              f"nmz_scorer_schedules_per_sec is {rate}")
+        fleet = wire.request(addr, {"op": "fleet"})["fleet"]
+        jobs = [row["job"] for row in fleet["instances"]]
+        check("sidecar" in jobs, f"the fleet has no job sidecar: {jobs}")
+        prof = wire.request(addr, {"op": "profile"})["profile"]
+        collapsed = wire.request(addr, {"op": "profile",
+                                        "format": "collapsed"})["text"]
+        check(prof is not None and prof["samples_total"] > 0,
+              "the profile op returned no samples")
+        shares, lines = profile_shares(prof, collapsed)
+        numbers["profile"] = shares
+        check(lines, "no collapsed stack holds ingest_history")
+        print(f"  fleet jobs {jobs}; profile: {shares['samples']} samples, "
+              f"{shares['serving']} serving a search, ingest_history "
+              f"{shares['ingest']} ({shares['ingest_share_of_all']:.1%} of "
+              f"all, {shares['ingest_share_of_serving']:.1%} of serving)")
+        print(f"  top self frames: {shares['top_self']}")
+        print(f"  top self frames serving a search: "
+              f"{shares['top_self_serving']}")
+        # the push target: a doc counting both searches, within 3
+        # intervals of the second's answer (a doc carries the series
+        # changed since the last acked push, so look at every doc)
+        deadline = done + 3 * RELAY_INTERVAL_S
+        pushed = None
+        while pushed is None:
+            for at, doc in target.received():
+                if (doc.get("job") == "sidecar"
+                        and sample(doc.get("families", []),
+                                   "nmz_sidecar_requests_total", ok="true",
+                                   op="search") == 2):
+                    pushed = at - done
+                    check(pushed <= 3 * RELAY_INTERVAL_S,
+                          f"the doc counting both searches came "
+                          f"{pushed:.2f} s after the second's answer")
+                    break
+            else:
+                check(time.monotonic() < deadline,
+                      f"no doc of job sidecar counting both searches came "
+                      f"within {3 * RELAY_INTERVAL_S:.0f} s "
+                      f"({len(target.received())} docs in all)")
+                time.sleep(0.1)
+        numbers["push_after_s"] = pushed
+        numbers["docs"] = len(target.received())
+        print(f"  push target: {numbers['docs']} docs; both searches "
+              f"counted in a doc {pushed:.2f} s after the second's answer")
+        children[0].check_alive()
+        # the plane's cost: the same warm request in turns with the
+        # package's own sidecar, also a process of its own
+        paddr = f"127.0.0.1:{_free_port()}"
+        pargv = [sys.executable, "-m", "namazu_tpu_torch.sidecar",
+                 "--listen", paddr]
+        if device == "cpu":
+            pargv += ["--device", "cpu"]
+        children.append(Child("package sidecar", pargv, paddr,
+                              os.path.join(work_dir, "package.log")))
+        children[1].start(CHILD_READY_S)
+        preq = dict(req, checkpoint=os.path.join(work_dir, "package.npz"),
+                    search_params=dict(sp, device_trace_dir=""))
+        _, cold = timed_request(paddr, preq, REQUEST_S)
+        got = {"s": [], "p": []}
+        for k in SHIM_TURNS:
+            a, r = (addr, req) if k == "s" else (paddr, preq)
+            got[k].append(timed_request(a, r, REQUEST_S)[1])
+        numbers["turns"] = {"shim": got["s"], "package": got["p"],
+                            "package_cold": cold}
+        ms, mp = (float(np.median(got[k])) for k in "sp")
+        print(f"  warm walls in turns ({SHIM_TURNS}): shim {got['s']}, package "
+              f"{got['p']}; medians {ms:.3f} / {mp:.3f} s "
+              f"({(ms / mp - 1):+.1%}); the package's cold first request "
+              f"(untraced) {cold:.3f} s")
+        for c in children:
+            c.check_alive()
+    except BaseException:
+        for c in children:
+            if c.proc is not None:
+                print(f"  {c.name} log (last 4000 bytes):\n{c.log_tail()}",
+                      file=sys.stderr)
+        raise
+    finally:
+        for c in children:
+            c.stop()
+        target.shutdown()
+    return numbers
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1997,7 +2425,8 @@ def main(argv=None) -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        sidecar = drive_sidecar_path("cuda", work)
+        walls5 = []
+        sidecar = drive_sidecar_path("cuda", work, walls=walls5)
         torch.cuda.synchronize()
         print("phase: fault, order and MCTS paths (one history)")
         extra, numbers = drive_extra_paths("cuda", work)
@@ -2021,6 +2450,11 @@ def main(argv=None) -> int:
             os.path.join(work, "history"))
         torch.cuda.synchronize()
         print(json.dumps({"policy_path": numbers}))
+        print("phase: the observed sidecar (namazu_tpu_torch_sidecar.py)")
+        shim = drive_shim_path("cuda", os.path.join(work, "shim"),
+                               os.path.join(work, "history"),
+                               walls5=[round(w, 3) for w in walls5])
+        print(json.dumps({"shim_path": shim}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for k in (pair, single):
@@ -2028,6 +2462,9 @@ def main(argv=None) -> int:
         k["launches_by_path"] = dict(
             {"fused_search": fused[k["name"]], "sidecar": sidecar[k["name"]]},
             **{path: n[k["name"]] for path, n in extra.items()})
+        # in the shim's own process: kernels in its capture of request 0
+        k["launches_by_path"]["shim_sidecar_traced"] = \
+            shim["traced_launches"][k["name"]]
     print(card)
     print(json.dumps({"kernels": [pair, single]}))
     print(json.dumps({"ok": True, "device": {

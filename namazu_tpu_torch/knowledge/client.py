@@ -15,10 +15,11 @@ fresh socket when an established one breaks (a service restarted
 between two runs); a refused connection or a timeout opens the cooldown
 at once.
 
-What a client sees is counted in its ``counts`` (the counterpart of the
-reference's ``obs`` counters): ops sent and answered, outages, entries
-pushed, deduplicated and pulled, and predictions asked and served by a
-trained model.
+What a client sees is counted in its ``counts``: ops sent and answered,
+outages, entries pushed, deduplicated and pulled, and predictions asked
+and served by a trained model. It also reports to its telemetry sink
+(``namazu_tpu_torch/obs.py``) where the reference's client reports to
+``obs``: each push, pull, outage and dossier pull.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from namazu_tpu_torch.models.failure_pool import (
     MAX_LOAD,
     entries_to_pool_entries,
 )
+from namazu_tpu_torch.obs import NULL, Telemetry
 from namazu_tpu_torch.wire import read_frame, write_frame
 
 log = logging.getLogger("namazu_tpu_torch.knowledge.client")
@@ -61,7 +63,8 @@ class KnowledgeClient:
 
     def __init__(self, addr: str, tenant: str = "", scenario: str = "",
                  timeout: float = 15.0,
-                 cooldown_s: float = COOLDOWN_S) -> None:
+                 cooldown_s: float = COOLDOWN_S,
+                 telemetry: Telemetry = NULL) -> None:
         host, _, port = addr.rpartition(":")
         self._host = host or "127.0.0.1"
         self._port = int(port)
@@ -77,6 +80,7 @@ class KnowledgeClient:
         #: what this client has seen, by name (see the module docstring)
         self.counts: Dict[str, int] = {}
         self._counts_lock = threading.Lock()
+        self.telemetry = telemetry
 
     def _count(self, name: str, n: int = 1) -> None:
         with self._counts_lock:
@@ -152,6 +156,7 @@ class KnowledgeClient:
         self._down_until = time.monotonic() + self.cooldown_s
         self._close_sock()
         self._count("outages")
+        self.telemetry.knowledge_outage()
         if not self._warned:
             self._warned = True
             log.warning("knowledge service %s %s; degrading to local-only "
@@ -189,6 +194,9 @@ class KnowledgeClient:
         if resp is not None:
             self._count("pushed_entries", resp.get("accepted", 0))
             self._count("push_duplicates", resp.get("duplicates", 0))
+        self.telemetry.knowledge_push(
+            resp is not None, accepted=(resp or {}).get("accepted", 0),
+            duplicates=(resp or {}).get("duplicates", 0))
         return resp
 
     def pull(self, H: int, exclude: Sequence[str] = (),
@@ -206,9 +214,11 @@ class KnowledgeClient:
             req["coverage_space"] = dict(coverage_space)
         resp = self._request(req)
         if resp is None:
+            self.telemetry.knowledge_pull(False)
             return None
         entries = entries_to_pool_entries(resp.get("entries") or [], H)
         self._count("pulled_entries", len(entries))
+        self.telemetry.knowledge_pull(True)
         table = resp.get("scenario_table")
         if table is not None:
             try:
@@ -276,6 +286,8 @@ class KnowledgeClient:
         degraded or when none is pooled."""
         resp = self._request({"op": "triage_pull",
                               "signature": str(signature)})
+        self.telemetry.triage_dossier_pull(
+            resp is not None and resp.get("dossier") is not None)
         return resp.get("dossier") if resp is not None else None
 
     def stats(self) -> Optional[dict]:
@@ -288,14 +300,16 @@ _clients: Dict[Tuple[str, str, str], KnowledgeClient] = {}
 _clients_lock = threading.Lock()
 
 
-def shared_client(addr: str, tenant: str = "",
-                  scenario: str = "") -> KnowledgeClient:
+def shared_client(addr: str, tenant: str = "", scenario: str = "",
+                  telemetry: Telemetry = NULL) -> KnowledgeClient:
     """One client per (addr, tenant, scenario) per process, so ingest and
-    the remote surrogate share a connection and an outage cooldown."""
+    the remote surrogate share a connection and an outage cooldown; it
+    reports to the sink of the call that created it."""
     key = (addr, tenant or "anon", scenario)
     with _clients_lock:
         client = _clients.get(key)
         if client is None:
             client = _clients[key] = KnowledgeClient(
-                addr, tenant=key[1], scenario=scenario)
+                addr, tenant=key[1], scenario=scenario,
+                telemetry=telemetry)
         return client

@@ -20,10 +20,18 @@ Every file the service writes has the reference's format, so a pool
 directory and its ``_state`` move between the two packages' services:
 pool entries, ``scenarios.json``, ``coverage.json``, ``triage.json`` and
 the example stores.
+
+The service reports to its telemetry sink (``namazu_tpu_torch/obs.py``)
+where the reference's reports to ``obs``: fit rounds, its tenant and
+pool gauges after every op, and the requests in its handler with each
+one's wait for the state lock. Its gauge refresh is registered with the
+sink while the service is open, so a relay's push carries fresh gauges
+across idle stretches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import json
@@ -47,6 +55,7 @@ from namazu_tpu_torch.models.failure_pool import (
     pool_size,
 )
 from namazu_tpu_torch.models.surrogate import RewardSurrogate
+from namazu_tpu_torch.obs import NULL, Telemetry
 from namazu_tpu_torch.utils.atomic import atomic_write, atomic_write_json
 
 log = logging.getLogger("namazu_tpu_torch.knowledge.service")
@@ -122,7 +131,7 @@ class KnowledgeService:
            "triage_push", "triage_pull")
 
     def __init__(self, pool_dir: str, state_dir: str = "",
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", telemetry: Telemetry = NULL):
         if not pool_dir:
             raise ValueError("KnowledgeService needs a pool directory")
         self.device = resolve_device(device)
@@ -134,6 +143,10 @@ class KnowledgeService:
         os.makedirs(self.pool_dir, exist_ok=True)
         os.makedirs(self.state_dir, exist_ok=True)
         self._lock = threading.Lock()
+        # requests inside handle(), reported with each lock wait
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        self.telemetry = telemetry
         # tenant -> {"first_seen", "last_seen", "pushes", "pulls"}
         self._tenants: Dict[str, Dict[str, Any]] = {}
         # scenario -> {"delays", "fitness", "H", "updated_at"}
@@ -149,9 +162,17 @@ class KnowledgeService:
         self._triage_pulls = 0
         self._triage_hits = 0
         self._load_state()
+        self.telemetry.register_collector(self._refresh_gauges)
+
+    def _refresh_gauges(self) -> None:
+        self.telemetry.knowledge_service_stats(len(self._tenants),
+                                               pool_size(self.pool_dir))
 
     def close(self) -> None:
-        """Nothing to release: every write is already on disk."""
+        """Detach the gauge refresh from the sink (every write is
+        already on disk): a closed service must not keep scanning its
+        pool for each push, nor shadow a successor's gauges."""
+        self.telemetry.unregister_collector(self._refresh_gauges)
 
     # -- persistence ------------------------------------------------------
 
@@ -260,25 +281,49 @@ class KnowledgeService:
         if handler is None:
             return {"ok": False, "v": self.VERSION,
                     "error": f"unknown knowledge op {op!r}"}
+        with self._inflight_lock:
+            self._inflight += 1
+            inflight = self._inflight
+        self.telemetry.knowledge_fanin(inflight)
         try:
-            resp = handler(req)
-        except (KeyError, TypeError, ValueError) as e:
-            # a malformed request costs that request
-            log.exception("knowledge op %s failed", op)
-            resp = {"ok": False, "error": repr(e)}
-        # persists and fits snapped under the lock run here, outside it;
-        # a device error in a fit raises to the wire (answered ok: false)
-        deferred = resp.pop("_deferred", ())
-        trained = False
-        for key, store, digests, feats, labels, want_train in deferred:
-            self._save_store(key, digests, feats, labels)
-            if want_train:
-                store.train_on(feats, labels, self.device)
-                trained = True
-        if deferred and op == "pool_push":
-            resp["trained"] = trained
-        resp.setdefault("v", self.VERSION)
-        return resp
+            try:
+                resp = handler(req)
+            except (KeyError, TypeError, ValueError) as e:
+                # a malformed request costs that request
+                log.exception("knowledge op %s failed", op)
+                resp = {"ok": False, "error": repr(e)}
+            # persists and fits snapped under the lock run here, outside
+            # it; a device error in a fit raises to the wire (answered
+            # ok: false)
+            deferred = resp.pop("_deferred", ())
+            trained = False
+            for key, store, digests, feats, labels, want_train in deferred:
+                self._save_store(key, digests, feats, labels)
+                if want_train:
+                    store.train_on(feats, labels, self.device)
+                    self.telemetry.knowledge_surrogate_round()
+                    trained = True
+            if deferred and op == "pool_push":
+                resp["trained"] = trained
+            resp.setdefault("v", self.VERSION)
+            if self.telemetry is not NULL:
+                # the gauges scan the pool: only for a sink that records
+                self._refresh_gauges()
+            return resp
+        finally:
+            with self._inflight_lock:
+                self._inflight -= 1
+                inflight = self._inflight
+            self.telemetry.knowledge_fanin(inflight)
+
+    @contextlib.contextmanager
+    def _locked(self):
+        """The state lock, its wait reported to the sink."""
+        t0 = time.monotonic()
+        with self._lock:
+            self.telemetry.knowledge_fanin(
+                self._inflight, lock_wait_s=time.monotonic() - t0)
+            yield
 
     def _touch_tenant(self, req: dict, what: str) -> str:
         tenant = str(req.get("tenant") or "anon")
@@ -313,7 +358,7 @@ class KnowledgeService:
         coverage = req.get("coverage")
         examples = req.get("examples") or []
         pairs_fp = str(req.get("pairs_fp") or "")
-        with self._lock:
+        with self._locked():
             self._touch_tenant(req, "pushes")
             self._pushes += 1
             self._dedupe_hits += duplicates
@@ -411,7 +456,7 @@ class KnowledgeService:
         pool scan runs outside the lock."""
         h = int(req.get("H") or 0)
         scenario = str(req.get("scenario") or "")
-        with self._lock:
+        with self._locked():
             self._touch_tenant(req, "pulls")
             self._pulls += 1
             table: Optional[dict] = None
@@ -463,7 +508,7 @@ class KnowledgeService:
         if feats.ndim != 2 or feats.shape[0] == 0:
             return {"ok": False, "error": "feats must be [N, K]"}
         key = (scenario, pairs_fp, int(feats.shape[1]))
-        with self._lock:
+        with self._locked():
             store = self._surrogates.get(key)
             if store is None and os.path.exists(self._store_path(key)):
                 store = self._get_store(key)  # recovered after a restart
@@ -502,7 +547,7 @@ class KnowledgeService:
                 flips = float("inf")
             return (0 if d.get("validated") else 1, flips)
 
-        with self._lock:
+        with self._locked():
             self._touch_tenant(req, "pushes")
             cur = self._triage.get(sig)
             accepted = cur is None or rank(dossier) < rank(cur)
@@ -515,7 +560,7 @@ class KnowledgeService:
 
     def _triage_pull(self, req: dict) -> dict:
         sig = str(req.get("signature") or "")
-        with self._lock:
+        with self._locked():
             self._touch_tenant(req, "pulls")
             self._triage_pulls += 1
             dossier = self._triage.get(sig)
@@ -527,7 +572,7 @@ class KnowledgeService:
     def _stats(self, req: dict) -> dict:
         """Pool, tenant, scenario, coverage, triage and surrogate
         occupancy."""
-        with self._lock:
+        with self._locked():
             return {
                 "ok": True,
                 "pool_dir": self.pool_dir,

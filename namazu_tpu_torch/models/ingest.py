@@ -26,6 +26,10 @@ Three knobs fold in memory beyond the storage, as in the reference:
 knowledge round trips) and its counts (``warmstart_archive``: pooled
 knowledge signatures new to the search; ``warmstart_coverage``: pooled
 coverage bits new to the map; ``coverage_bits``, ``one_sided``).
+The warm-start counts and the coverage map go to ``search.telemetry``
+too (``knowledge_warmstart``, ``relation_coverage``), and so do the
+knowledge client's round trips, as the reference's ingest reports them
+to ``obs``.
 """
 
 from __future__ import annotations
@@ -185,9 +189,10 @@ def ingest_history(search, storage, p: IngestParams,
     # first, then the others' signatures (never our own) come down
     pooled = []
     client = None
+    tel = search.telemetry
     if p.knowledge:
         client = shared_client(p.knowledge, tenant=p.knowledge_tenant,
-                               scenario=p.knowledge_scenario)
+                               scenario=p.knowledge_scenario, telemetry=tel)
     if p.failure_pool or client is not None:
         own = set()
         push_entries = []
@@ -218,10 +223,12 @@ def ingest_history(search, storage, p: IngestParams,
                 fresh = sum(1 for e in r_entries
                             if not search.has_failure_signature(e.digest))
                 clock.stats["warmstart_archive"] = fresh
+                tel.knowledge_warmstart("archive", fresh)
                 pooled = pooled + r_entries
                 if gmap is not None:
-                    clock.stats["warmstart_coverage"] = \
-                        gmap.merge_bits(remote[2])
+                    merged = gmap.merge_bits(remote[2])
+                    clock.stats["warmstart_coverage"] = merged
+                    tel.knowledge_warmstart("coverage", merged)
             clock.lap("knowledge")
         if pooled:
             log.info("folding %d pooled failure signature(s) into the "
@@ -268,6 +275,9 @@ def ingest_history(search, storage, p: IngestParams,
     if gmap is not None:
         clock.stats["coverage_bits"] = gmap.covered()
         clock.stats["one_sided"] = gmap.one_sided_count()
+        tel.relation_coverage(p.knowledge_scenario or "local",
+                              clock.stats["coverage_bits"], gmap.width,
+                              clock.stats["one_sided"])
         if client is not None:
             # publish this campaign's frontier for the next cold campaign
             client.push(coverage={"H": gmap.H, "w": gmap.width,

@@ -1,15 +1,20 @@
-"""The search's telemetry seam: the port's counterpart of the calls the
-reference search makes into ``namazu_tpu/obs`` (``obs/spans.py``
-``search_round``, ``search_progress``, ``scorer_throughput``,
-``search_phase``, ``search_device_trace``; ``obs/recorder.py``
-``record_generation``).
+"""The telemetry seam: the port's counterpart of the calls the reference's
+search, ingest, knowledge client and service, sidecar and framed server
+make into ``namazu_tpu/obs`` (``obs/spans.py`` ``search_round``,
+``search_progress``, ``scorer_throughput``, ``search_phase``,
+``search_device_trace``, ``sidecar_request``, ``wire_bytes``, the
+``knowledge_*`` calls, ``triage_dossier_pull``, ``relation_coverage``;
+``obs/recorder.py`` ``record_generation``; ``obs/federation.py``
+``register_collector`` and ``unregister_collector``).
 
-The port imports nothing of the reference, so a search reports to a
+The port imports nothing of the reference, so each of those reports to a
 *sink*: any object with the methods of :class:`Telemetry`, set as
-``search.telemetry``. The default sink records nothing. A caller that
-runs the reference's observability plane (the ``torch_search`` policy
-shim) hands the reference's ``obs`` module in as the sink: its functions
-carry these names and signatures.
+``search.telemetry`` or passed as ``telemetry=``. The default sink
+records nothing. A caller that runs the reference's observability plane
+hands it in as the sink: the ``torch_search`` policy shim the
+reference's ``obs`` module, whose functions carry these names and
+signatures, and the sidecar shim (``namazu_tpu_torch_sidecar.py``) that
+module with the two collector calls of ``obs.federation``.
 
 :func:`trace_range` stands in for ``jax.named_scope`` and
 ``jax.profiler.TraceAnnotation``: a ``torch.profiler.record_function``
@@ -21,13 +26,13 @@ capture) with the kernels launched inside it, and under
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 
 class Telemetry:
-    """The sink a search reports to; every method records nothing."""
+    """The sink the port reports to; every method records nothing."""
 
     def search_phase(self, phase: str):
         """Context manager around one phase of a search (``encode``,
@@ -63,8 +68,61 @@ class Telemetry:
     def search_device_trace(self, path: str) -> None:
         """A completed device-trace capture written under ``path``."""
 
+    def sidecar_request(self, op: str, ok: bool) -> None:
+        """One request the sidecar answered, by op and outcome."""
 
-#: the default sink of every search
+    def wire_bytes(self, codec: str, op: str, n: int) -> None:
+        """``n`` bytes of one framed request and its answer, by codec
+        and op."""
+
+    def knowledge_push(self, ok: bool, accepted: int = 0,
+                       duplicates: int = 0) -> None:
+        """One ``pool_push`` round trip of a knowledge client: entries
+        the service newly stored and those it already held."""
+
+    def knowledge_pull(self, ok: bool) -> None:
+        """One ``pool_pull`` round trip of a knowledge client."""
+
+    def knowledge_outage(self) -> None:
+        """The knowledge service was unreachable or refused an op; the
+        client degraded to local-only search."""
+
+    def knowledge_warmstart(self, kind: str, n: int = 1) -> None:
+        """``n`` pieces of fleet knowledge installed by an ingest
+        (``archive``: pooled signatures new to the search; ``coverage``:
+        pooled coverage bits new to its map)."""
+
+    def knowledge_surrogate_round(self) -> None:
+        """One fit round of a shared surrogate on the knowledge
+        service."""
+
+    def knowledge_service_stats(self, tenants: int,
+                                pool_entries: int) -> None:
+        """The knowledge service's tenants and pooled signatures."""
+
+    def knowledge_fanin(self, inflight: int,
+                        lock_wait_s: Optional[float] = None) -> None:
+        """Requests inside the knowledge service's handler, and (as one
+        enters its state lock) how long it waited for the lock."""
+
+    def triage_dossier_pull(self, ok: bool) -> None:
+        """One dossier fetch of a knowledge client; ``ok``: a dossier
+        came back."""
+
+    def relation_coverage(self, scenario: str, covered: int, width: int,
+                          one_sided: Optional[int] = None) -> None:
+        """A campaign's coverage map after ingest: bits covered of
+        ``width``, and the relations seen in one direction only."""
+
+    def register_collector(self, fn: Callable[[], None]) -> None:
+        """Have ``fn`` refresh sampled gauges before each push and each
+        ``metrics`` read."""
+
+    def unregister_collector(self, fn: Callable[[], None]) -> None:
+        """Undo :meth:`register_collector`."""
+
+
+#: the default sink of every search, client, service and sidecar
 NULL = Telemetry()
 
 

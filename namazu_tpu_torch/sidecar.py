@@ -24,7 +24,18 @@ Ops, with the reference's response shapes:
 * the knowledge ops (``pool_push``, ``pool_pull``, ``surrogate_predict``,
   ``stats``, ``triage_push``, ``triage_pull``) go to the hosted
   knowledge service (``knowledge/service.py``) when the sidecar was
-  started with ``--pool-dir``, and are refused otherwise.
+  started with ``--pool-dir``, and are refused otherwise;
+* the observability ops (``telemetry``, ``fleet``, ``metrics``,
+  ``profile``) go to the ``obs_ops`` hook, asked before any other op;
+  without one they are unknown ops.
+
+The server, its search service and the searches it builds report to a
+telemetry sink (``obs.py``; records nothing by default): each request by
+op and outcome, as the reference's sidecar counts them, and the
+searches' phases and rounds. ``namazu_tpu_torch_sidecar.py`` at the
+repository root is the port's ``nmz-tpu sidecar``: it hands in the
+reference's observability plane as the sink and the hook, and starts
+its telemetry relay and sampling profiler.
 
 Every knob of the policy's request is served: the fault half, order
 mode, the MCTS backend, ``devices = N`` (N islands, one on each of the
@@ -36,6 +47,9 @@ one-shot device trace. Run it with
 
     python -m namazu_tpu_torch.sidecar --listen 127.0.0.1:10990 \
         [--pool-dir DIR] [--device cpu]
+
+or, observed, with ``python namazu_tpu_torch_sidecar.py`` (the same
+flags as ``nmz-tpu sidecar``).
 """
 
 from __future__ import annotations
@@ -47,7 +61,7 @@ import os
 import sys
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -60,6 +74,7 @@ from namazu_tpu_torch.knowledge import (
 )
 from namazu_tpu_torch.models.ingest import IngestParams, ingest_history
 from namazu_tpu_torch.models.search import SearchBase
+from namazu_tpu_torch.obs import NULL, Telemetry
 from namazu_tpu_torch.policy.tpu import (
     build_search,
     ingest_params,
@@ -77,8 +92,11 @@ class Refused(Exception):
 class SearchService:
     """One live search per experiment key, on one device."""
 
-    def __init__(self, device: DeviceLike = "cuda"):
+    def __init__(self, device: DeviceLike = "cuda",
+                 telemetry: Telemetry = NULL):
         self.device = resolve_device(device)
+        #: the sink of the requests and of every search built here
+        self.telemetry = telemetry
         # key -> (params fingerprint, search)
         self._searches: Dict[str, Tuple[str, SearchBase]] = {}
         self._lock = threading.Lock()
@@ -98,13 +116,16 @@ class SearchService:
     def handle(self, req: dict) -> dict:
         op = req.get("op")
         if op == "ping":
-            return {"ok": True, "searches": len(self._searches)}
-        if op == "search":
+            resp = {"ok": True, "searches": len(self._searches)}
+        elif op == "search":
             try:
-                return self._search(req)
+                resp = self._search(req)
             except Refused as e:
-                return {"ok": False, "error": str(e)}
-        return {"ok": False, "error": f"unknown op {op!r}"}
+                resp = {"ok": False, "error": str(e)}
+        else:
+            resp = {"ok": False, "error": f"unknown op {op!r}"}
+        self.telemetry.sidecar_request(str(op), bool(resp.get("ok")))
+        return resp
 
     def search_for(self, key: str) -> Optional[SearchBase]:
         with self._lock:
@@ -123,6 +144,7 @@ class SearchService:
             search = build_search(params, self.device)
         except ValueError as e:  # e.g. more devices than cards
             raise Refused(f"search_params: {e}") from e
+        search.telemetry = self.telemetry
         if checkpoint and os.path.exists(checkpoint):
             try:
                 search.load(checkpoint)
@@ -182,7 +204,7 @@ class SearchService:
             # loopback (each connection has its own handler thread)
             wire_remote_surrogate(search, shared_client(
                 ip.knowledge, tenant=ip.knowledge_tenant,
-                scenario=ip.knowledge_scenario))
+                scenario=ip.knowledge_scenario, telemetry=self.telemetry))
         stats: Dict[str, float] = {}
         t0 = time.perf_counter()
         references = ingest_history(search, storage, ip, stats=stats)
@@ -217,13 +239,19 @@ class SearchService:
 
 class SidecarServer:
     """The search service, and the knowledge service when one is given,
-    behind a keep-alive framed server."""
+    behind a keep-alive framed server. ``obs_ops(req)`` answers the
+    observability ops: asked first, its answer other than ``None`` is
+    returned as it is and not counted."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 10990,
                  device: DeviceLike = "cuda",
-                 knowledge: Optional[KnowledgeService] = None):
-        self.service = SearchService(device)
+                 knowledge: Optional[KnowledgeService] = None,
+                 telemetry: Telemetry = NULL,
+                 obs_ops: Optional[Callable[[dict], Optional[dict]]] = None):
+        self.service = SearchService(device, telemetry)
         self.knowledge = knowledge
+        self.telemetry = telemetry
+        self.obs_ops = obs_ops
         self._host, self._port = host, port
         self._srv: Optional[FramedServer] = None
 
@@ -233,7 +261,8 @@ class SidecarServer:
         return self._srv.port
 
     def start(self) -> None:
-        srv = FramedServer(self._dispatch, name="sidecar")
+        srv = FramedServer(self._dispatch, name="sidecar",
+                           telemetry=self.telemetry)
         srv.bind_tcp(self._host, self._port)
         srv.start()
         self._srv = srv
@@ -252,13 +281,20 @@ class SidecarServer:
         without one, so clients tell "no knowledge here" from a dead
         host), everything else to the search service; ``ping`` advertises
         the knowledge service only when one is hosted."""
+        if self.obs_ops is not None:
+            resp = self.obs_ops(req)
+            if resp is not None:
+                return resp
         op = req.get("op")
         if op in KNOWLEDGE_OPS:
             if self.knowledge is None:
-                return {"ok": False,
+                resp = {"ok": False,
                         "error": "knowledge service not configured "
                                  "(start the sidecar with --pool-dir)"}
-            return self.knowledge.handle(req)
+            else:
+                resp = self.knowledge.handle(req)
+            self.telemetry.sidecar_request(str(op), bool(resp.get("ok")))
+            return resp
         resp = self.service.handle(req)
         if op == "ping" and self.knowledge is not None:
             resp["knowledge"] = True
@@ -269,7 +305,11 @@ class SidecarServer:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m namazu_tpu_torch.sidecar",
-        description="persistent search sidecar on the card")
+        description="persistent search sidecar on the card",
+        epilog="This entry records no telemetry and answers the "
+               "observability ops (telemetry, fleet, metrics, profile) "
+               "'unknown op'; namazu_tpu_torch_sidecar.py serves them, "
+               "with the telemetry relay and the sampling profiler.")
     ap.add_argument("--listen", default="127.0.0.1:10990",
                     help="host:port to serve on (default 127.0.0.1:10990)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),

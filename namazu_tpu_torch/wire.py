@@ -8,7 +8,9 @@ which this wire does not speak: such a frame is read and answered
 ``{"ok": false}`` in JSON, as is a frame whose body is not a JSON
 object, so the client's stream stays in sync. A connection carries any
 number of request/response pairs, served in order; EOF, a socket error
-or an oversized frame drops it.
+or an oversized frame drops it. The server reports each answered
+request's bytes, in and out, by op to its telemetry sink
+(``wire_bytes``), as the reference's server does.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import logging
 import socket
 import struct
 import threading
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
+
+from namazu_tpu_torch.obs import NULL, Telemetry
 
 log = logging.getLogger("namazu_tpu_torch.wire")
 
@@ -81,32 +85,38 @@ def read_frame(sock: socket.socket) -> Optional[dict]:
     return json.loads(body)
 
 
-def answer(handler: Handler, binary: bool, body: bytes) -> dict:
-    """The response to one raw frame: the handler's, or ``ok: false``
-    for a frame the wire cannot take or a handler that raised."""
+def answer(handler: Handler, binary: bool,
+           body: bytes) -> Tuple[Optional[str], dict]:
+    """``(op, response)`` for one raw frame: the request's op (``"frame"``
+    when it names none) and the handler's response, or ``None`` and
+    ``ok: false`` for a frame the wire cannot take; a handler that
+    raised is answered ``ok: false`` too."""
     if binary:
-        return {"ok": False, "error": "binary frames are not supported; "
-                                      "use the JSON codec"}
+        return None, {"ok": False, "error": "binary frames are not "
+                                            "supported; use the JSON codec"}
     try:
         req = json.loads(body)
     except ValueError as e:
-        return {"ok": False, "error": f"undecodable json frame: {e}"}
+        return None, {"ok": False, "error": f"undecodable json frame: {e}"}
     if not isinstance(req, dict):
-        return {"ok": False, "error": "frame must be a JSON object"}
+        return None, {"ok": False, "error": "frame must be a JSON object"}
+    op = str(req.get("op") or "frame")
     try:
-        return handler(req)
+        return op, handler(req)
     except Exception as e:  # answer, never desync the wire
         log.exception("op %r failed", req.get("op"))
-        return {"ok": False, "error": repr(e)}
+        return op, {"ok": False, "error": repr(e)}
 
 
 class FramedServer:
     """Keep-alive framed-JSON TCP server: one thread per connection, the
     connection's requests answered in order."""
 
-    def __init__(self, handler: Handler, name: str = "framed"):
+    def __init__(self, handler: Handler, name: str = "framed",
+                 telemetry: Telemetry = NULL):
         self._handler = handler
         self._name = name
+        self._telemetry = telemetry
         self._sock: Optional[socket.socket] = None
         self._conns: set = set()
         self._lock = threading.Lock()
@@ -163,10 +173,14 @@ class FramedServer:
                     return
                 if frame is None:
                     return
+                op, resp = answer(self._handler, *frame)
                 try:
-                    write_frame(conn, answer(self._handler, *frame))
+                    n_out = write_frame(conn, resp)
                 except OSError:
                     return
+                if op is not None:
+                    self._telemetry.wire_bytes("json", op,
+                                               len(frame[1]) + n_out)
         finally:
             with self._lock:
                 self._conns.discard(conn)

@@ -32,8 +32,8 @@ With ``dcn_hosts > 1`` start one ``run`` per host with
 ``NMZ_TPU_COORDINATOR=host:port``, ``NMZ_TPU_NUM_PROCESSES`` and
 ``NMZ_TPU_PROCESS_ID`` set; the processes meet in ``torch.distributed``.
 
-This file is the only one of the port that imports ``namazu_tpu``; it
-imports no JAX.
+This file and ``namazu_tpu_torch_sidecar.py`` are the port's only files
+that import ``namazu_tpu``; neither imports JAX.
 """
 
 from __future__ import annotations
@@ -97,20 +97,10 @@ class TorchSearchPolicy(TPUSearchPolicy):
         return search
 
     def _ingest_history(self, search):
-        params = self._ingest_params()._asdict()
-        stats: dict = {}
+        # the ingest reports to search.telemetry, the reference's obs
         storage = None if self._storage is None else _History(self._storage)
-        references = ingest_history(search, storage, ingest_params(params),
-                                    stats=stats)
-        # what the reference's ingest reports to the obs plane
-        obs.knowledge_warmstart("archive", stats.get("warmstart_archive", 0))
-        obs.knowledge_warmstart("coverage",
-                                stats.get("warmstart_coverage", 0))
-        if search.guidance is not None and "coverage_bits" in stats:
-            obs.relation_coverage(params["knowledge_scenario"] or "local",
-                                  stats["coverage_bits"],
-                                  search.guidance.width, stats["one_sided"])
-        return references
+        return ingest_history(search, storage, ingest_params(
+            self._ingest_params()._asdict()))
 
     def _failure_seed(self, trace):
         return failure_seed(_records(trace), self.H, self.max_interval)

@@ -7,8 +7,10 @@ search that launches B1 once per simulation, and phases 9-10 in small (8
 islands on the card launching B1 once a generation, layout independence
 on the card, 8 lockstep MCTS trees with one launch and one sync a
 simulation), a campaign of the ``torch_search`` policy through the
-CLI (``namazu_tpu_torch_policy.py``) searching on the card, and that
-policy's ingest at full width timed against the port's. Every test
+CLI (``namazu_tpu_torch_policy.py``) searching on the card, that
+policy's ingest at full width timed against the port's, and the observed
+sidecar's server (``namazu_tpu_torch_sidecar.py``) reporting a search
+on the card to the reference's metrics. Every test
 needs a CUDA card and skips without one; on a machine with a card run
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -509,3 +511,48 @@ def test_policy_ingest_at_full_width_on_the_card(card, tmp_path):
     print(f"\ningest at full width, {torch.cuda.get_device_name(0)}: "
           f"port reader {seconds['port']} s, policy (reference reader + "
           f"adapter) {seconds['policy']} s")
+
+
+def test_shim_sidecar_on_the_card_reports_its_search(card, tmp_path):
+    """The observed sidecar's server (``namazu_tpu_torch_sidecar.py``)
+    on the card serves one search over a small history; its ``metrics``
+    op then shows the search's phases and one search request, and B1
+    launched once a generation (and once a re-rank)."""
+    import chip_smoke
+    import namazu_tpu_torch_sidecar as shim
+    from namazu_tpu.obs import federation, metrics
+    from namazu_tpu_torch import wire
+
+    storage = chip_smoke.write_history(str(tmp_path / "h"), runs=12,
+                                       failures=4, events=200)
+    req = {"op": "search", "key": storage, "storage": storage,
+           "search_params": dict(chip_smoke.POLICY_SEARCH_PARAMS, H=32,
+                                 K=32, population=128, fused_chunk=3),
+           "ingest_params": dict(chip_smoke.POLICY_INGEST_PARAMS, H=32),
+           "generations": 6, "checkpoint": ""}
+    metrics.configure(True)
+    metrics.reset()
+    federation.reset()
+    srv = shim.build_server("127.0.0.1", 0, "cuda")
+    srv.start()
+    before = pd.LAUNCHES
+    try:
+        addr = f"127.0.0.1:{srv.port}"
+        resp = wire.request(addr, req)
+        launches = pd.LAUNCHES - before
+        fams = wire.request(addr, {"op": "metrics"})["metrics"]["metrics"]
+        search = srv.service.search_for(storage)
+    finally:
+        srv.shutdown()
+        federation.reset()
+        metrics.reset()
+    assert resp["ok"] is True and resp["generations_run"] == 6
+    assert search.device.type == "cuda"
+    assert launches == 6 + (search._surrogate is not None)
+    assert chip_smoke.sample(fams, "nmz_sidecar_requests_total", ok="true",
+                             op="search") == 1
+    phases = {p: chip_smoke.sample(fams, "nmz_search_phase_seconds",
+                                   phase=p)
+              for p in ("encode", "evolve", "host_io", "surrogate")}
+    assert phases == {"encode": 1, "evolve": 1, "host_io": 2,
+                      "surrogate": 1}

@@ -365,7 +365,7 @@ def _imports(path: pathlib.Path):
 
 def test_port_imports_neither_jax_nor_the_reference_package():
     """The package and chip_smoke.py import neither JAX nor the
-    reference, nor the policy shim (the one file that imports the
+    reference, nor either shim (the two files that import the
     reference)."""
     files = sorted((REPO / "namazu_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -374,7 +374,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         for name in _imports(f):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "namazu_tpu", "flax",
-                                "optax", "namazu_tpu_torch_policy"), \
+                                "optax", "namazu_tpu_torch_policy",
+                                "namazu_tpu_torch_sidecar"), \
                 f"{f}: imports {name}"
 
 
@@ -383,6 +384,14 @@ def test_the_policy_shim_imports_no_jax():
              for name in _imports(REPO / "namazu_tpu_torch_policy.py")}
     assert {"namazu_tpu", "namazu_tpu_torch"} <= roots
     assert not roots & {"jax", "jaxlib", "flax", "optax"}
+
+
+def test_the_sidecar_shim_imports_no_jax():
+    roots = {name.split(".")[0]
+             for name in _imports(REPO / "namazu_tpu_torch_sidecar.py")}
+    assert {"namazu_tpu", "namazu_tpu_torch"} <= roots
+    assert not roots & {"jax", "jaxlib", "flax", "optax",
+                        "namazu_tpu_torch_policy"}
 
 
 # -- surrogate re-rank and the pair refit ----------------------------------
