@@ -136,7 +136,30 @@ Phases, each of which fails the script on any error:
    same call; then the package's own sidecar (no sink, relay or
    profiler) starts as a second child, and warm requests go to the two
    in turns for the plane's cost. The children are terminated in any
-   case, their logs printed when a check fails.
+   case, their logs printed when a check fails;
+14. chaos over the campaign's memory: phase 11's campaign A (two
+   requests at the policy's defaults over phase 5's history, every knob
+   on, the knowledge service hosted by the sidecar itself, over a fresh
+   pool) with a fault schedule installed in the package's chaos seams
+   (``namazu_tpu_torch/chaos.py``): ``knowledge.eof`` on two first
+   attempts, ``storage.tear`` and ``storage.fsync`` on the service's
+   first two state writes, ``knowledge.outage`` on request 2's first
+   knowledge op; after each request its table is pushed as the policy's
+   best. Every request answers ok and re-scores on the CPU to its
+   fitness, B1 launches 2 * 64 + 2 times, every point fires, the
+   client's counts agree with the fire log (each eof retried, one
+   outage and its cooldown); cleared and restarted on the same port and
+   pool, the service answers a pull with the highest acknowledged
+   fitness; the pool fscks clean and the state directory holds the
+   torn temp. Its walls print beside phase 11's campaign A;
+15. driver entry (``namazu_tpu_torch/entry.py``, the counterpart of
+   ``__graft_entry__.py``): ``entry()``'s scorer once on the card (B1
+   once), within rtol 1e-3 / atol 1e-4 of the same fn on the CPU's
+   plain versions on the same inputs; ``dryrun_multichip(8)`` (8
+   islands, then the 2 x 4 hybrid mesh, on the card) and
+   ``dryrun_multichip_fused(16)`` (a 4 x 4 topology mesh against one
+   island, 4 dispatches of 8 generations each), B1 once a shard and
+   generation, the overhead factor printed.
 
 Phase 2 also holds B1 at the rollout shapes N = 256 and N = 64 (A = 512,
 F = 64, K = 256) and times it there. Several cards and several processes
@@ -2358,6 +2381,262 @@ def drive_shim_path(device, work_dir, storage, generations=GENERATIONS,
     return numbers
 
 
+# -- phase 14: chaos over the campaign's memory ------------------------------
+
+CHAOS_TENANT = "chaos"  # its own shared client, apart from phase 11's
+
+
+class ScheduledDecider:
+    """A fault schedule for the package's chaos seams
+    (``namazu_tpu_torch/chaos.py``), written here because this script
+    imports nothing of the reference (its ``FaultPlan``). Each point fires
+    on the consult indices of its rule, the counterpart of a plan's
+    ``at`` rules; :meth:`arm` makes a point fire on its next consult.
+    Every fire is logged as ``(point, index)``. It locks itself: the
+    sidecar consults it from its connection threads."""
+
+    def __init__(self, at: dict):
+        import threading
+
+        self.at = {p: set(ix) for p, ix in at.items()}
+        self.consults: dict = {}
+        self.fires: list = []
+        self._lock = threading.Lock()
+
+    def arm(self, point: str) -> None:
+        with self._lock:
+            self.at.setdefault(point, set()).add(self.consults.get(point, 0))
+
+    def fired(self, point: str) -> int:
+        with self._lock:
+            return sum(1 for p, _ in self.fires if p == point)
+
+    def __call__(self, point: str):
+        with self._lock:
+            index = self.consults.get(point, 0)
+            self.consults[point] = index + 1
+            if index not in self.at.get(point, ()):
+                return None
+            self.fires.append((point, index))
+        return {"point": point, "index": index}
+
+
+def drive_chaos_path(device, work_dir, history, generations=GENERATIONS,
+                     search_params=None, ingest_params=None):
+    """Phase 11's campaign A under injected faults: a port sidecar hosting
+    its knowledge service over a fresh pool, campaign A's two requests
+    over ``history`` (no device trace) at the policy's defaults with its
+    knowledge at the sidecar itself, and after each request the answer's
+    table pushed as the policy pushes its best. A decider fires
+    ``knowledge.eof`` on the first push's and the first pull's first
+    attempts (each retried), ``storage.tear`` on the service's first state
+    write and ``storage.fsync`` on its second, and ``knowledge.outage``
+    on request 2's first knowledge op (its cooldown silences the rest of
+    that request and the push after it). Fixed indices, not draws: an eof
+    on a push whose service write runs after its answer would race that
+    write against the next op's for the storage consults. Every request
+    answers ok with a table that re-scores on the CPU to its fitness;
+    B1 launches as on phase 11's path; the client's counts agree with the
+    fire log. Then the decider is cleared, the sidecar restarts on the
+    same port and pool, and a fresh client's pull returns the highest
+    acknowledged fitness; the pool has no temp file and no unreadable
+    entry, and the service's state directory holds the one torn temp.
+    Returns ``(launches, numbers)``."""
+    from namazu_tpu_torch import chaos, wire
+    from namazu_tpu_torch.knowledge import (
+        KnowledgeClient,
+        KnowledgeService,
+        shared_client,
+    )
+    from namazu_tpu_torch.models.failure_pool import pool_fsck
+    from namazu_tpu_torch.ops import pair_distance as pd
+    from namazu_tpu_torch.sidecar import SidecarServer
+
+    os.makedirs(work_dir, exist_ok=True)
+    pool = os.path.join(work_dir, "knowledge-pool")
+    sp = dict(search_params or POLICY_SEARCH_PARAMS, guidance=True)
+    ip = dict(ingest_params or POLICY_INGEST_PARAMS, guidance=True,
+              failure_pool=os.path.join(work_dir, "pool-a"),
+              knowledge_tenant=CHAOS_TENANT,
+              knowledge_scenario=KNOWLEDGE_SCENARIO)
+    decider = ScheduledDecider({"knowledge.eof": [0, 2],
+                                "storage.tear": [0], "storage.fsync": [0]})
+    server = SidecarServer("127.0.0.1", 0, device=device,
+                           knowledge=KnowledgeService(pool, device=device))
+    server.start()
+    port = server.port
+    addr = f"127.0.0.1:{port}"
+    ip["knowledge"] = addr
+    ckpt = os.path.join(work_dir, "search-a.npz")
+    req = {"op": "search", "key": history, "storage": history,
+           "search_params": sp, "ingest_params": ip,
+           "generations": generations, "checkpoint": ckpt}
+    client = shared_client(addr, tenant=CHAOS_TENANT,
+                           scenario=KNOWLEDGE_SCENARIO)
+    numbers = {"requests": []}
+    acked = []
+    chaos.set_decider(decider)
+    try:
+        sync(device)
+        pd.LAUNCHES = pd.SINGLE_LAUNCHES = 0
+        with socket.create_connection(("127.0.0.1", port)) as sk:
+            for r in range(2):
+                if r == 1:
+                    decider.arm("knowledge.outage")
+                t0 = time.perf_counter()
+                wire.write_frame(sk, req)
+                resp = wire.read_frame(sk)
+                wall = time.perf_counter() - t0
+                check(resp is not None and resp.get("ok") is True,
+                      f"chaos request {r} failed: {resp}")
+                search = server.service.search_for(history)
+                refs = newest_references(history, H=search.cfg.H)
+                rescored = rescore_on_cpu(search, refs, resp["delays"],
+                                          resp["faults"])
+                check(math.isclose(rescored, resp["fitness"], rel_tol=RTOL,
+                                   abs_tol=ATOL),
+                      f"chaos request {r}: re-scored fitness {rescored} "
+                      f"!= returned {resp['fitness']}")
+                tm = dict(server.service.timings[history])
+                # the policy's end-of-run push of its best table
+                pushed = client.push(best={
+                    "delays": [float(x) for x in resp["delays"]],
+                    "fitness": float(resp["fitness"]), "H": search.cfg.H})
+                if pushed is not None:
+                    acked.append(float(resp["fitness"]))
+                numbers["requests"].append(dict(tm, wall=wall))
+                print(f"  chaos request {r}: wall {wall:.3f} s; ingest "
+                      f"{tm['ingest']:.3f} s (knowledge "
+                      f"{tm.get('ingest_knowledge', 0.0):.3f}); run "
+                      f"{tm['run']:.4f} s; fitness {resp['fitness']:.6f} "
+                      f"(re-scored on the CPU {rescored:.6f}); best push "
+                      f"{'acknowledged' if pushed else 'degraded'}; fires "
+                      f"so far {decider.fires}")
+        launches = {"min_sq_pair": pd.LAUNCHES, "min_sq": pd.SINGLE_LAUNCHES}
+    finally:
+        chaos.clear_decider()
+        server.shutdown()
+    counts = dict(client.counts)
+    print(f"  knowledge client counts {counts}; consults "
+          f"{decider.consults}; fires {decider.fires}")
+    if device != "cpu":
+        check(launches["min_sq_pair"] == 2 * generations + 2,
+              f"pair kernel launched {launches['min_sq_pair']} times on the "
+              f"chaos path, expected {2 * generations + 2}")
+    for point in ("knowledge.eof", "knowledge.outage", "storage.tear",
+                  "storage.fsync"):
+        check(decider.fired(point) >= 1, f"{point} never fired")
+    check(decider.fired("knowledge.outage") == 1, "more than one outage")
+    # each eof hit a first attempt and was retried, with no outage of its
+    # own; the one outage silenced the client for its cooldown: no op
+    # reached the wire after it
+    check(counts.get("retries", 0) == decider.fired("knowledge.eof"),
+          f"retries {counts.get('retries')} != eof fires")
+    check(counts.get("outages", 0) == 1, f"outages {counts.get('outages')}")
+    check(counts.get("requests", 0)
+          == counts.get("answered", 0) + counts.get("outages", 0),
+          f"requests not all answered but the outage: {counts}")
+    check(decider.consults["knowledge.outage"] == counts["requests"],
+          "an op consulted the outage point outside the counted requests")
+    last = max(i for p, i in decider.fires if p == "knowledge.outage")
+    check(last == decider.consults["knowledge.outage"] - 1,
+          "an op reached the wire after the outage, inside its cooldown")
+    check(not client.available(), "the outage's cooldown is not open")
+    check(acked, "no best table was acknowledged")
+    # the restart: a fresh service over the same pool on the same port
+    server = SidecarServer("127.0.0.1", port, device=device,
+                           knowledge=KnowledgeService(pool, device=device))
+    server.start()
+    try:
+        fresh = KnowledgeClient(addr, tenant=CHAOS_TENANT,
+                                scenario=KNOWLEDGE_SCENARIO)
+        pulled = fresh.pull(search.cfg.H)
+        fresh.close()
+    finally:
+        server.shutdown()
+    check(pulled is not None and pulled[1] is not None,
+          f"the restarted service has no table: {pulled}")
+    check(pulled[1]["fitness"] == max(acked),
+          f"pulled fitness {pulled[1]['fitness']} != highest acknowledged "
+          f"{max(acked)}")
+    report = pool_fsck(pool)
+    check(not report["unreadable_entries"] and not report["tmp_artifacts"],
+          f"pool fsck: {report}")
+    state = os.path.join(pool, "_state")
+    torn = sorted(n for n in os.listdir(state) if n.endswith(".tmp"))
+    check(len(torn) == decider.fired("storage.tear"),
+          f"state temps {torn} after {decider.fired('storage.tear')} tears")
+    print(f"  restarted on port {port}: pulled fitness "
+          f"{pulled[1]['fitness']:.6f} (acknowledged {acked}); pool fsck "
+          f"{report['entries']} entries, no temp, none unreadable; torn "
+          f"temps in the state directory {torn}")
+    numbers.update(counts=counts, fires=decider.fires, acked=acked,
+                   torn=torn)
+    return launches, numbers
+
+
+# -- phase 15: the driver entry ----------------------------------------------
+
+
+def drive_entry_path(device):
+    """``namazu_tpu_torch.entry`` on ``device``: the scorer once (B1 once on
+    the card), held to the same fn on the CPU (the plain versions) on the
+    same inputs; ``dryrun_multichip(8)`` and ``dryrun_multichip_fused(16)``
+    (B1 once a shard and generation). Returns ``({path: launches},
+    numbers)``."""
+    import torch
+
+    from namazu_tpu_torch import entry
+    from namazu_tpu_torch.ops import pair_distance as pd
+
+    launches, numbers = {}, {}
+
+    def counted(name, fn, *args, **kw):
+        sync(device)
+        pd.LAUNCHES = pd.SINGLE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        sync(device)
+        numbers[f"{name}_s"] = time.perf_counter() - t0
+        launches[name] = {"min_sq_pair": pd.LAUNCHES,
+                          "min_sq": pd.SINGLE_LAUNCHES}
+        return out
+
+    fn, args = entry.entry(device)
+    got = counted("entry", fn, *args).cpu()
+    cfn, cargs = entry.entry("cpu")
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(args, cargs)),
+          "entry's inputs differ between the card and the CPU")
+    want = cfn(*cargs)
+    err = float((got.double() - want.double()).abs().max())
+    check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+          f"entry on {device} differs from the CPU by {err}")
+    print(f"  entry: fitness [{got.shape[0]}] within rtol {RTOL} / atol "
+          f"{ATOL} of the CPU's (max abs err {err:.3g}), "
+          f"{numbers['entry_s'] * 1e3:.2f} ms with its first launch")
+    numbers["entry_max_abs_err"] = err
+    counted("dryrun_multichip", entry.dryrun_multichip, 8, device=device)
+    fused = counted("dryrun_multichip_fused", entry.dryrun_multichip_fused,
+                    16, device=device)
+    check(fused["ok"] is True, f"fused dry run: {fused}")
+    numbers["dryrun_multichip_fused"] = fused
+    print(f"  dryrun_multichip_fused: overhead factor "
+          f"{fused['overhead_factor']} (mesh {fused['t_mesh_s']} s, one "
+          f"island {fused['t_single_device_s']} s)")
+    if device != "cpu":
+        shards = len(set(entry.island_devices(8, device)))
+        want_launches = {"entry": 1, "dryrun_multichip": 2 * shards,
+                         # 4 dispatches of 8 generations, mesh then one island
+                         "dryrun_multichip_fused": 32 * (
+                             len(set(entry.island_devices(16, device))) + 1)}
+        for name, n in want_launches.items():
+            check(launches[name]["min_sq_pair"] == n,
+                  f"pair kernel launched {launches[name]['min_sq_pair']} "
+                  f"times on {name}, expected {n}")
+    print(f"  B1 launches: {launches}")
+    return launches, numbers
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2442,6 +2721,7 @@ def main(argv=None) -> int:
             "cuda", os.path.join(work, "knowledge"),
             history_a=os.path.join(work, "history"))
         extra.update(knowledge)
+        walls11 = [round(n["wall"], 3) for n in numbers["knowledge_a"]]
         torch.cuda.synchronize()
         print(json.dumps({"knowledge_path": numbers}))
         print("phase: in-process policy path")
@@ -2455,8 +2735,26 @@ def main(argv=None) -> int:
                                os.path.join(work, "history"),
                                walls5=[round(w, 3) for w in walls5])
         print(json.dumps({"shim_path": shim}))
+        print("phase: chaos over the campaign's memory")
+        t0 = time.perf_counter()
+        extra["chaos"], numbers = drive_chaos_path(
+            "cuda", os.path.join(work, "chaos"),
+            os.path.join(work, "history"))
+        numbers["phase_s"] = time.perf_counter() - t0
+        walls14 = [round(n["wall"], 3) for n in numbers["requests"]]
+        print(f"  request walls {walls14} s; phase 11's campaign A in this "
+              f"call: {walls11} s; the phase {numbers['phase_s']:.2f} s")
+        print(json.dumps({"chaos_path": numbers}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    print("phase: the driver entry")
+    t0 = time.perf_counter()
+    entries, numbers = drive_entry_path("cuda")
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"  the phase {numbers['phase_s']:.2f} s")
+    extra.update(entries)
+    print(json.dumps({"entry_path": numbers}))
     for k in (pair, single):
         k["launches"] = sidecar[k["name"]]
         k["launches_by_path"] = dict(

@@ -16,10 +16,15 @@ between two runs); a refused connection or a timeout opens the cooldown
 at once.
 
 What a client sees is counted in its ``counts``: ops sent and answered,
-outages, entries pushed, deduplicated and pulled, and predictions asked
-and served by a trained model. It also reports to its telemetry sink
-(``namazu_tpu_torch/obs.py``) where the reference's client reports to
-``obs``: each push, pull, outage and dossier pull.
+outages, retries on a fresh socket, entries pushed, deduplicated and
+pulled, and predictions asked and served by a trained model. It also
+reports to its telemetry sink (``namazu_tpu_torch/obs.py``) where the
+reference's client reports to ``obs``: each push, pull, outage and
+dossier pull. It consults the chaos seam (``namazu_tpu_torch/chaos.py``)
+where the reference's client consults its plan: ``knowledge.eof`` after
+each request frame is written (the socket is dropped, as by a service
+dying mid-reply, and the retry runs) and ``knowledge.outage`` before
+each round trip (as if the port were closed: the cooldown opens).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from namazu_tpu_torch import chaos
 from namazu_tpu_torch.models.failure_pool import (
     MAX_LOAD,
     entries_to_pool_entries,
@@ -115,6 +121,9 @@ class KnowledgeClient:
                 self._sock = self._connect()
             try:
                 write_frame(self._sock, req)
+                if chaos.decide("knowledge.eof") is not None:
+                    self._close_sock()
+                    raise ConnectionResetError("chaos: mid-stream EOF")
                 resp = read_frame(self._sock)
                 if resp is None:
                     raise ConnectionError("connection closed mid-reply")
@@ -126,6 +135,7 @@ class KnowledgeClient:
                 self._close_sock()
                 if attempt:
                     raise ConnectionError(str(e)) from e
+                self._count("retries")
         raise AssertionError("unreachable")
 
     def _request(self, req: dict) -> Optional[dict]:
@@ -137,6 +147,9 @@ class KnowledgeClient:
             if time.monotonic() < self._down_until:
                 return None
             self._count("requests")
+            if chaos.decide("knowledge.outage") is not None:
+                self._mark_outage("chaos: injected outage")
+                return None
             try:
                 resp = self._roundtrip(req)
             except Exception as e:

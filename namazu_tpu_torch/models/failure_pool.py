@@ -84,7 +84,7 @@ def pool_put(pool_dir: str, realized: EncodedTrace, arrival: EncodedTrace,
         payload["seed"] = np.asarray(seed, np.float32)
     buf = io.BytesIO()
     np.savez(buf, **payload)
-    atomic_write(path, buf.getvalue())
+    atomic_write(path, buf.getvalue(), seams=False)  # as the reference's
     return digest, True
 
 

@@ -190,18 +190,27 @@ def make_island_mesh(n_islands: int, axis: str = "i",
 
 def make_topology_mesh(n_devices: Optional[int] = None, host_size: int = 4,
                        axes: tuple = ("h", "i"),
-                       device: DeviceLike = "cuda") -> IslandMesh:
-    """``h x i`` mesh grouped by host (``host_size`` cards a host) for a
+                       device: DeviceLike = "cuda",
+                       devices: Optional[Sequence[DeviceLike]] = None
+                       ) -> IslandMesh:
+    """``h x i`` mesh grouped by host (``host_size`` islands a host) for a
     count past one host's; one host's worth or less falls back to the
-    flat mesh, as in the reference."""
-    n = n_devices if n_devices is not None else default_device_count(device)
+    flat mesh, as in the reference. ``devices`` has one entry per island
+    (repeats put several islands on one device); by default one island
+    on each of ``n_devices`` cards."""
+    if devices is None:
+        n = (n_devices if n_devices is not None
+             else default_device_count(device))
+        if n <= host_size:
+            return make_mesh(n_devices, axis=axes[1], device=device)
+        devices = make_mesh(n, device=device).devices
+    n = len(devices)
     if n <= host_size:
-        return make_mesh(n_devices, axis=axes[1], device=device)
+        return IslandMesh((axes[1],), (n,), devices)
     if n % host_size != 0:
         raise ValueError(f"{n} devices do not divide into hosts of "
                          f"{host_size}")
     from namazu_tpu_torch.parallel.distributed import make_hybrid_mesh
 
-    devices = make_mesh(n, device=device).devices
     return make_hybrid_mesh(n_hosts=n // host_size, devices=devices,
                             axes=axes)

@@ -18,10 +18,13 @@ the four places where the reference reaches JAX replaced by the port's
 (``namazu_tpu_torch/policy/tpu.py``): building the search, ingesting the
 history, a failure's seed table and the shared surrogate's hook. The
 search reports to the reference's observability plane
-(``namazu_tpu.obs``). Everything else is inherited: the event-time
-decisions, the reorder window, the checkpoint-first install (numpy
-alone), ``search_every``, the knowledge warm start and push, and the
-sidecar branch, whose in-process fallback now runs on the card.
+(``namazu_tpu.obs``), and the port's chaos seams (its ingest's knowledge
+client: ``knowledge.eof``, ``knowledge.outage``) consult the reference's
+``chaos.decide``, so the plan ``run`` installs from ``NMZ_CHAOS`` fires
+in them as in the reference's client. Everything else is inherited: the
+event-time decisions, the reorder window, the checkpoint-first install
+(numpy alone), ``search_every``, the knowledge warm start and push, and
+the sidecar branch, whose in-process fallback now runs on the card.
 
 The one departure from the reference's control flow: the device is
 resolved when the config loads, so a ``platform`` the port does not serve
@@ -38,9 +41,10 @@ that import ``namazu_tpu``; neither imports JAX.
 
 from __future__ import annotations
 
-from namazu_tpu import obs
+from namazu_tpu import chaos, obs
 from namazu_tpu.policy.base import register_policy
 from namazu_tpu.policy.tpu import TPUSearchPolicy
+from namazu_tpu_torch import chaos as seams
 from namazu_tpu_torch.history import ActionRecord
 from namazu_tpu_torch.models.ingest import failure_seed, ingest_history
 from namazu_tpu_torch.policy.tpu import (
@@ -94,6 +98,7 @@ class TorchSearchPolicy(TPUSearchPolicy):
         search = build_search(self._search_params(), self.device,
                               dcn_hosts=self.dcn_hosts)
         search.telemetry = obs
+        seams.set_decider(chaos.decide)
         return search
 
     def _ingest_history(self, search):

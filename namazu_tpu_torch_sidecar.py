@@ -22,7 +22,13 @@ reference's ``serve_sidecar`` (``namazu_tpu/sidecar.py``) runs:
   ``--telemetry-url`` (default ``$NMZ_TELEMETRY_URL``), so the sidecar
   shows in a campaign's ``/fleet`` view;
 * the continuous sampling profiler (``namazu_tpu.obs.profiling``, 10 ms)
-  serves the ``profile`` op.
+  serves the ``profile`` op;
+* the port's chaos seams (``namazu_tpu_torch/chaos.py``: the knowledge
+  clients' ``knowledge.eof`` and ``knowledge.outage``, the knowledge
+  service's ``storage.*`` writes) consult the reference's
+  ``chaos.decide``, so a plan installed in this process
+  (``namazu_tpu.chaos.install``) fires in them. Like the reference's
+  ``nmz-tpu sidecar``, this one installs no plan from ``NMZ_CHAOS``.
 
 ``--platform`` names the device as the ``torch_search`` policy's
 ``platform`` knob does: ``""``, ``"gpu"`` or ``"cuda"`` (the default) is
@@ -42,8 +48,9 @@ import os
 import sys
 import threading
 
-from namazu_tpu import obs
+from namazu_tpu import chaos, obs
 from namazu_tpu.obs import federation, profiling, spans
+from namazu_tpu_torch import chaos as seams
 from namazu_tpu_torch.device import DeviceLike
 from namazu_tpu_torch.knowledge import KnowledgeService
 from namazu_tpu_torch.policy.tpu import policy_device
@@ -73,7 +80,9 @@ def build_server(host: str, port: int, device: DeviceLike,
                  pool_dir: str = "", state_dir: str = "") -> SidecarServer:
     """The port's sidecar reporting to the reference's plane and
     answering its observability ops, with the knowledge service over
-    ``pool_dir`` when one is given; not started."""
+    ``pool_dir`` when one is given, and the port's chaos seams consulting
+    the reference's plan; not started."""
+    seams.set_decider(chaos.decide)
     knowledge = None
     if pool_dir:
         knowledge = KnowledgeService(pool_dir, state_dir=state_dir,

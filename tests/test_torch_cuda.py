@@ -10,7 +10,9 @@ simulation), a campaign of the ``torch_search`` policy through the
 CLI (``namazu_tpu_torch_policy.py``) searching on the card, that
 policy's ingest at full width timed against the port's, and the observed
 sidecar's server (``namazu_tpu_torch_sidecar.py``) reporting a search
-on the card to the reference's metrics. Every test
+on the card to the reference's metrics, and the driver entry's scorer
+(``namazu_tpu_torch/entry.py``) launching B1 once and agreeing with
+its plain version on the CPU. Every test
 needs a CUDA card and skips without one; on a machine with a card run
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -556,3 +558,18 @@ def test_shim_sidecar_on_the_card_reports_its_search(card, tmp_path):
               for p in ("encode", "evolve", "host_io", "surrogate")}
     assert phases == {"encode": 1, "evolve": 1, "host_io": 2,
                       "surrogate": 1}
+
+
+def test_entry_on_the_card_matches_the_cpu(card):
+    from namazu_tpu_torch import entry
+
+    fn, args = entry.entry("cuda")
+    assert all(a.device.type == "cuda" for a in args)
+    before = pd.LAUNCHES
+    got = fn(*args).cpu()
+    assert pd.LAUNCHES - before == 1
+    cpu_fn, cpu_args = entry.entry("cpu")
+    for a, b in zip(args, cpu_args):
+        assert torch.equal(a.cpu(), b)  # the same inputs on both
+    want = cpu_fn(*cpu_args)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)

@@ -370,6 +370,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     files = sorted((REPO / "namazu_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    assert {REPO / "namazu_tpu_torch" / "chaos.py",
+            REPO / "namazu_tpu_torch" / "entry.py"} <= set(files)
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]
@@ -377,6 +379,17 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                                 "optax", "namazu_tpu_torch_policy",
                                 "namazu_tpu_torch_sidecar"), \
                 f"{f}: imports {name}"
+
+
+def test_only_the_shims_hand_in_the_reference_chaos_plane():
+    """The port's seams reach the reference's plan through the two shims
+    (the package and chip_smoke.py import nothing of the reference, as
+    the test above holds)."""
+    for shim in ("namazu_tpu_torch_policy.py", "namazu_tpu_torch_sidecar.py"):
+        tree = ast.parse((REPO / shim).read_text())
+        assert any(isinstance(n, ast.ImportFrom) and n.module == "namazu_tpu"
+                   and "chaos" in [a.name for a in n.names]
+                   for n in ast.walk(tree)), shim
 
 
 def test_the_policy_shim_imports_no_jax():

@@ -498,3 +498,47 @@ def test_chip_smoke_rehearses_the_policy_path(tmp_path):
     assert {k: v[0] for k, v in numbers["device_trace"].items()} == {
         r: 5 for r in chip_smoke.NMZ_RANGES}
     assert not torch.distributed.is_initialized()
+
+
+def test_chip_smoke_rehearses_the_chaos_path(tmp_path):
+    """chip_smoke.py's phase 14 at a tiny size on the CPU: campaign A's
+    two requests under the fault schedule answer ok and re-score to
+    their fitness, every point fires, the client's counts agree with the
+    fires, the restarted service serves the highest acknowledged table,
+    the pool fscks clean, and no kernel launches."""
+    import chip_smoke
+    from namazu_tpu_torch import chaos
+
+    sp = dict(chip_smoke.POLICY_SEARCH_PARAMS, H=32, K=32, population=64,
+              fused_chunk=3)
+    ip = dict(chip_smoke.POLICY_INGEST_PARAMS, H=32)
+    storage = chip_smoke.write_history(str(tmp_path / "h"), runs=12,
+                                       failures=4, events=200)
+    launches, numbers = chip_smoke.drive_chaos_path(
+        "cpu", str(tmp_path / "c"), storage, generations=3,
+        search_params=sp, ingest_params=ip)
+    assert launches == {"min_sq_pair": 0, "min_sq": 0}
+    assert chaos.decide("storage.tear") is None  # cleared
+    assert sorted({p for p, _ in numbers["fires"]}) == [
+        "knowledge.eof", "knowledge.outage", "storage.fsync",
+        "storage.tear"]
+    assert numbers["counts"]["retries"] == 2
+    assert len(numbers["acked"]) == 1 and len(numbers["torn"]) == 1
+    assert numbers["torn"][0].startswith("coverage.json.")
+
+
+def test_chip_smoke_rehearses_the_entry_path(capsys):
+    """chip_smoke.py's phase 15 on the CPU: the entry's scorer against
+    itself and both dry runs, launching no kernel."""
+    import chip_smoke
+
+    launches, numbers = chip_smoke.drive_entry_path("cpu")
+    assert set(launches) == {"entry", "dryrun_multichip",
+                             "dryrun_multichip_fused"}
+    assert all(n == {"min_sq_pair": 0, "min_sq": 0}
+               for n in launches.values())
+    assert numbers["entry_max_abs_err"] == 0.0
+    assert numbers["dryrun_multichip_fused"]["ok"] is True
+    out = capsys.readouterr().out
+    assert out.count("dryrun_multichip OK") == 2
+    assert "dryrun_multichip_fused OK" in out
