@@ -159,10 +159,22 @@ Phases, each of which fails the script on any error:
    islands, then the 2 x 4 hybrid mesh, on the card) and
    ``dryrun_multichip_fused(16)`` (a 4 x 4 topology mesh against one
    island, 4 dispatches of 8 generations each), B1 once a shard and
-   generation, the overhead factor printed.
+   generation, the overhead factor printed;
+16. the port's bench (``namazu_tpu_torch/bench.py``, the counterpart of
+   ``bench.py``'s scorer and fused benches) in this process at
+   ``bench.py``'s sizes (P = 8192, H = L = K = 256, archive 1024, 64
+   failures, 50 passes or generations, best of 5): each returns
+   platform ``cuda``, the card's name and power limit and a positive
+   rate, and publishes its record into a temporary history; the
+   scorer's accuracy check (64 genomes against the CPU's plain
+   versions) passes; B1 launches 1 + 6 * 50 times for the scorer and
+   6 * 50 + 1 + 5 * 50 for the fused bench; one scoring chain read back
+   makes one sync (the read); device ms and launches a pass and a
+   generation are printed.
 
 Phase 2 also holds B1 at the rollout shapes N = 256 and N = 64 (A = 512,
-F = 64, K = 256) and times it there. Several cards and several processes
+F = 64, K = 256) and at the bench's shape (N = 8192, A = 1024, F = 64,
+K = 256) and times it there. Several cards and several processes
 are not driven here (one card): the islands and trees of phases 9-10
 share the card. Phases 11-12 print each request's or search's wall and
 ingest. The last lines are the card line, a JSON line with every
@@ -198,6 +210,8 @@ MAIN_SHAPE = (16384, 512, 64, 256)  # N = P*T, A, F, K on the main path
 # B1 in an MCTS rollout: N = rollouts * traces (64 * 4), and 64 rows with
 # one envelope reference trace
 ROLLOUT_SHAPES = ((256, 512, 64, 256), (64, 512, 64, 256))
+# B1 in the port's bench (namazu_tpu_torch/bench.py): P, A, F, K
+BENCH_SHAPE = (8192, 1024, 64, 256)
 SINGLE_SHAPE = (16384, 512, 256)  # B2 held at N, A, K
 POPULATION, H, K, TRACES, EVENTS, GENERATIONS = 4096, 256, 256, 4, 2000, 64
 HISTORY_RUNS, HISTORY_FAILURES = 48, 8
@@ -554,6 +568,8 @@ def check_pair_kernel(device, real=None, timed=True) -> dict:
                  (ROLLOUT_SHAPES[0], 300, 17),
                  (ROLLOUT_SHAPES[1], None, None),
                  (ROLLOUT_SHAPES[1], 300, 17),
+                 (BENCH_SHAPE, None, None),
+                 (BENCH_SHAPE, 700, 33),
              ])]
     for i, exact in enumerate((True, False)):
         what = "exact archive, near failures" if exact else \
@@ -605,6 +621,15 @@ def check_pair_kernel(device, real=None, timed=True) -> dict:
                 bounds_ms(N, A + F, Kc, 2))
             out["at_rollout_shapes"][f"N={N}"] = t
             report("pair kernel", shape, t, max_err)
+        N, A, F, Kc = BENCH_SHAPE
+        f, a, fl = pair_inputs(N, A, F, Kc, 10, device)
+        out["at_bench_shape"] = timing(
+            lambda: pd.min_sq_distance_pair(f, a, fl),
+            lambda: pd.min_sq_distance_pair_reference(f, a, fl),
+            lambda: (torch.cdist(f, a).square().amin(1),
+                     torch.cdist(f, fl).square().amin(1)),
+            bounds_ms(N, A + F, Kc, 2))
+        report("pair kernel", BENCH_SHAPE, out["at_bench_shape"], max_err)
     return out
 
 
@@ -2637,6 +2662,102 @@ def drive_entry_path(device):
     return launches, numbers
 
 
+# -- phase 16: the port's bench -----------------------------------------------
+
+
+def drive_bench_path(device, sizes=None):
+    """``namazu_tpu_torch/bench.py``'s scorer and fused benches on
+    ``device`` in this process at ``sizes`` (the bench's production sizes
+    by default), their records published into a temporary history. Each
+    returns its platform, the card and a positive rate; on the card B1
+    launches once for the accuracy check and once a pass of the warm-up
+    and timed chains (scorer), once a generation of the warm-up and timed
+    fused runs, the warm step and the timed unfused runs (fused); one
+    scoring chain read back makes one sync, the read. Then, on the card,
+    device ms a pass and a generation (CUDA events) and launches a pass
+    and a generation (torch.profiler). Returns ``({path: launches},
+    numbers)``."""
+    import tempfile
+
+    import torch
+
+    from namazu_tpu_torch import bench
+    from namazu_tpu_torch.ops import pair_distance as pd
+    from namazu_tpu_torch.parallel.islands import (
+        fused_step,
+        init_island_state,
+        one_island,
+    )
+
+    sizes = sizes or bench.PRODUCTION
+    n, reps = sizes.iters, sizes.reps
+    launches, numbers = {}, {}
+    card = card_line() if device != "cpu" else None
+    with tempfile.TemporaryDirectory() as tmp:
+        history = os.path.join(tmp, "history.jsonl")
+        for name, run in (("bench_scorer", bench.run_scorer_bench),
+                          ("bench_fused", bench.run_fused_bench)):
+            sync(device)
+            pd.LAUNCHES = pd.SINGLE_LAUNCHES = 0
+            out = run(device, sizes)
+            sync(device)
+            launches[name] = {"min_sq_pair": pd.LAUNCHES,
+                              "min_sq": pd.SINGLE_LAUNCHES}
+            check(out["platform"] == torch.device(device).type
+                  and out["card"] == card and out["value"] > 0,
+                  f"{name}: {out}")
+            check(bench.publish(dict(out), history) == 0,
+                  f"{name}: publishing failed")
+            numbers[name] = out
+        records = bench.load_history(history)
+        kept = sum(not out.get("smoke") for out in numbers.values())
+        check([r["platform"] for r in records] == [
+            torch.device(device).type] * kept, f"history records {records}")
+    scorer, fused = numbers["bench_scorer"], numbers["bench_fused"]
+    print(f"  scorer: {scorer['value']} schedules/s, vs_baseline "
+          f"{scorer['vs_baseline']}, fitness within rtol {bench.RTOL} / "
+          f"atol {bench.ATOL} of the CPU's (max abs err "
+          f"{scorer['check_max_abs_err']:.3g}); fused: {fused['value']} "
+          f"schedules/s, unfused {fused['unfused_schedules_per_sec']}, "
+          f"vs_unfused {fused['vs_unfused']}; card {card}")
+    if device != "cpu":
+        want = {"bench_scorer": 1 + (reps + 1) * n,
+                "bench_fused": (reps + 1) * n + 1 + reps * n}
+        for name, w in want.items():
+            check(launches[name]["min_sq_pair"] == w,
+                  f"pair kernel launched {launches[name]['min_sq_pair']} "
+                  f"times on {name}, expected {w}")
+        inputs = bench.bench_inputs(*sizes[:6], device)
+        d = inputs.pop.delays
+
+        def chain():
+            return bench.score_chain(d, inputs, n)
+
+        syncs = count_syncs(lambda: chain()[0, 0].item())
+        check(syncs == 1, f"one scoring chain read back made {syncs} "
+                          "syncs, expected 1 (the read)")
+        numbers["chain_syncs"] = syncs
+        mesh = one_island(device)
+        state = init_island_state(0, sizes.P, sizes.H, bench.GA, mesh=mesh)
+
+        def generations():
+            fused_step(state, n, bench.FUSED_SEED, inputs.trace,
+                       inputs.pairs, inputs.archive, inputs.failures,
+                       bench.GA, mesh=mesh, rings=bench.RINGS)
+
+        for what, fn in (("pass", chain), ("generation", generations)):
+            numbers[f"event_ms_per_{what}"] = cuda_time_ms(
+                fn, iters=3, warmup=1) / n
+            numbers[f"profile_per_{what}"] = device_profile(fn, n)
+            prof = numbers[f"profile_per_{what}"]
+            print(f"  a {what}: {numbers[f'event_ms_per_{what}']:.4f} ms "
+                  f"between CUDA events, {prof['device_ms']:.4f} ms of "
+                  f"kernels, {prof['launches']:.1f} launches, busy "
+                  f"{prof['device_busy_share']:.1%}")
+    print(f"  B1 launches: {launches}")
+    return launches, numbers
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2755,6 +2876,14 @@ def main(argv=None) -> int:
     print(f"  the phase {numbers['phase_s']:.2f} s")
     extra.update(entries)
     print(json.dumps({"entry_path": numbers}))
+    torch.cuda.synchronize()
+    print("phase: the port's bench")
+    t0 = time.perf_counter()
+    benches, numbers = drive_bench_path("cuda")
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"  the phase {numbers['phase_s']:.2f} s")
+    extra.update(benches)
+    print(json.dumps({"bench_path": numbers}))
     for k in (pair, single):
         k["launches"] = sidecar[k["name"]]
         k["launches_by_path"] = dict(

@@ -56,8 +56,8 @@ from namazu_tpu_torch.parallel.islands import (
 from namazu_tpu_torch.parallel.mesh import IslandMesh, make_topology_mesh
 
 
-def _trace(hints: int, buckets: int, L: int, H: int, dev: torch.device
-           ) -> TraceArrays:
+def synthetic_trace(hints: int, buckets: int, L: int, H: int,
+                    dev: torch.device) -> TraceArrays:
     """The reference's synthetic trace: ``hints`` events of ``hint:{i %
     buckets}``, one a millisecond."""
     enc = te.encode_event_stream(
@@ -77,7 +77,7 @@ def entry(device: DeviceLike = "cuda") -> Tuple[Callable, tuple]:
     launches B1 once."""
     dev = resolve_device(device)
     H, L, K, A, P = 256, 256, 256, 512, 1024
-    trace = _trace(200, 96, L, H, dev)
+    trace = synthetic_trace(200, 96, L, H, dev)
     pairs = torch.from_numpy(te.sample_pairs(K, H, 0)).to(dev)
     pop = init_population(torch.Generator().manual_seed(0), P, H,
                           GAConfig(max_delay=0.1))
@@ -112,7 +112,7 @@ def island_devices(n: int, device: DeviceLike = "cuda"
 def _tiny_inputs(dev: torch.device):
     """The dry runs' shapes: H 32, L 64, K 32, archive 16, 4 failures."""
     H, L, K, A = 32, 64, 32, 16
-    trace = _trace(40, 12, L, H, dev)
+    trace = synthetic_trace(40, 12, L, H, dev)
     pairs = torch.from_numpy(te.sample_pairs(K, H, 0)).to(dev)
     archive = torch.full((A, K), 0.5, dtype=torch.float32, device=dev)
     failures = torch.full((4, K), 0.5, dtype=torch.float32, device=dev)

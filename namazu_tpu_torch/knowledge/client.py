@@ -20,7 +20,9 @@ outages, retries on a fresh socket, entries pushed, deduplicated and
 pulled, and predictions asked and served by a trained model. It also
 reports to its telemetry sink (``namazu_tpu_torch/obs.py``) where the
 reference's client reports to ``obs``: each push, pull, outage and
-dossier pull. It consults the chaos seam (``namazu_tpu_torch/chaos.py``)
+dossier pull; each op frame carries the sink's causality stamp
+(``ctx``; none from the default sink) and the answer's stamp is merged
+back. It consults the chaos seam (``namazu_tpu_torch/chaos.py``)
 where the reference's client consults its plan: ``knowledge.eof`` after
 each request frame is written (the socket is dropped, as by a service
 dying mid-reply, and the retry runs) and ``knowledge.outage`` before
@@ -143,6 +145,11 @@ class KnowledgeClient:
         refused the op). Never raises."""
         req = dict(req, v=WIRE_VERSION, tenant=self.tenant,
                    scenario=req.get("scenario", self.scenario))
+        stamp = self.telemetry.wire_stamp()
+        if stamp is not None:
+            # the service merges our clock and answers a stamp of its
+            # own, merged below
+            req.setdefault("ctx", stamp)
         with self._lock:
             if time.monotonic() < self._down_until:
                 return None
@@ -163,6 +170,7 @@ class KnowledgeClient:
             self._down_until = 0.0
             self._warned = False
             self._count("answered")
+            self.telemetry.observe_wire(resp.get("ctx"))
             return resp
 
     def _mark_outage(self, why: str) -> None:

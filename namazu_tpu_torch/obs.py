@@ -4,17 +4,20 @@ make into ``namazu_tpu/obs`` (``obs/spans.py`` ``search_round``,
 ``search_progress``, ``scorer_throughput``, ``search_phase``,
 ``search_device_trace``, ``sidecar_request``, ``wire_bytes``, the
 ``knowledge_*`` calls, ``triage_dossier_pull``, ``relation_coverage``;
-``obs/recorder.py`` ``record_generation``; ``obs/federation.py``
-``register_collector`` and ``unregister_collector``).
+``obs/recorder.py`` ``record_generation``; ``obs/context.py``
+``wire_stamp`` and ``observe_wire``, the causality stamps on framed ops;
+``obs/federation.py`` ``register_collector`` and
+``unregister_collector``).
 
 The port imports nothing of the reference, so each of those reports to a
 *sink*: any object with the methods of :class:`Telemetry`, set as
 ``search.telemetry`` or passed as ``telemetry=``. The default sink
 records nothing. A caller that runs the reference's observability plane
-hands it in as the sink: the ``torch_search`` policy shim the
-reference's ``obs`` module, whose functions carry these names and
-signatures, and the sidecar shim (``namazu_tpu_torch_sidecar.py``) that
-module with the two collector calls of ``obs.federation``.
+hands it in as the sink: both shims (``namazu_tpu_torch_sidecar.py``
+and the ``torch_search`` policy shim) the sidecar shim's ``SINK``, which
+forwards to the reference's ``obs`` module, whose functions carry these
+names and signatures, with the two collector calls of
+``obs.federation`` and the two stamp calls of ``obs.context``.
 
 :func:`trace_range` stands in for ``jax.named_scope`` and
 ``jax.profiler.TraceAnnotation``: a ``torch.profiler.record_function``
@@ -113,6 +116,16 @@ class Telemetry:
                           one_sided: Optional[int] = None) -> None:
         """A campaign's coverage map after ingest: bits covered of
         ``width``, and the relations seen in one direction only."""
+
+    def wire_stamp(self) -> Optional[dict]:
+        """A causality stamp (``{"lc", "o"}``: the sender's Lamport clock,
+        ticked, and its identity) for an op frame or a response, or
+        ``None`` to send none: the frame then stays as it was before
+        stamps."""
+        return None
+
+    def observe_wire(self, ctx) -> None:
+        """Merge a peer's stamp (the ``ctx`` of a frame) into the clock."""
 
     def register_collector(self, fn: Callable[[], None]) -> None:
         """Have ``fn`` refresh sampled gauges before each push and each

@@ -10,7 +10,10 @@ object, so the client's stream stays in sync. A connection carries any
 number of request/response pairs, served in order; EOF, a socket error
 or an oversized frame drops it. The server reports each answered
 request's bytes, in and out, by op to its telemetry sink
-(``wire_bytes``), as the reference's server does.
+(``wire_bytes``), as the reference's server does. A request that carries
+a causality stamp (``ctx``) has it merged into the sink's clock, and its
+answer gets a fresh stamp unless the handler set one; with a sink that
+stamps nothing (the default) the answer's bytes are as without stamps.
 """
 
 from __future__ import annotations
@@ -85,12 +88,15 @@ def read_frame(sock: socket.socket) -> Optional[dict]:
     return json.loads(body)
 
 
-def answer(handler: Handler, binary: bool,
-           body: bytes) -> Tuple[Optional[str], dict]:
+def answer(handler: Handler, binary: bool, body: bytes,
+           telemetry: Telemetry = NULL) -> Tuple[Optional[str], dict]:
     """``(op, response)`` for one raw frame: the request's op (``"frame"``
     when it names none) and the handler's response, or ``None`` and
     ``ok: false`` for a frame the wire cannot take; a handler that
-    raised is answered ``ok: false`` too."""
+    raised is answered ``ok: false`` too. A request's ``ctx`` stamp is
+    merged into ``telemetry``'s clock before the handler runs, and the
+    response of such a request gets ``telemetry``'s fresh stamp (the
+    reference's ``FramedServer._answer``)."""
     if binary:
         return None, {"ok": False, "error": "binary frames are not "
                                             "supported; use the JSON codec"}
@@ -101,11 +107,19 @@ def answer(handler: Handler, binary: bool,
     if not isinstance(req, dict):
         return None, {"ok": False, "error": "frame must be a JSON object"}
     op = str(req.get("op") or "frame")
+    ctx = req.get("ctx")
+    if ctx is not None:
+        telemetry.observe_wire(ctx)
     try:
-        return op, handler(req)
+        resp = handler(req)
     except Exception as e:  # answer, never desync the wire
         log.exception("op %r failed", req.get("op"))
-        return op, {"ok": False, "error": repr(e)}
+        resp = {"ok": False, "error": repr(e)}
+    if ctx is not None:
+        stamp = telemetry.wire_stamp()
+        if stamp is not None:
+            resp.setdefault("ctx", stamp)
+    return op, resp
 
 
 class FramedServer:
@@ -173,7 +187,8 @@ class FramedServer:
                     return
                 if frame is None:
                     return
-                op, resp = answer(self._handler, *frame)
+                op, resp = answer(self._handler, *frame,
+                                  telemetry=self._telemetry)
                 try:
                     n_out = write_frame(conn, resp)
                 except OSError:

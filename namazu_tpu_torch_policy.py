@@ -25,6 +25,11 @@ in them as in the reference's client. Everything else is inherited: the
 event-time decisions, the reorder window, the checkpoint-first install
 (numpy alone), ``search_every``, the knowledge warm start and push, and
 the sidecar branch, whose in-process fallback now runs on the card.
+The search and its ingest's knowledge client report to the sidecar
+shim's sink (``namazu_tpu_torch_sidecar.SINK``: the reference's ``obs``,
+its causality stamps included), and no phase of a ``torch_search``
+search imports JAX (``load_config`` turns the reference's
+``jax.profiler`` annotation off).
 
 The one departure from the reference's control flow: the device is
 resolved when the config loads, so a ``platform`` the port does not serve
@@ -41,7 +46,8 @@ that import ``namazu_tpu``; neither imports JAX.
 
 from __future__ import annotations
 
-from namazu_tpu import chaos, obs
+from namazu_tpu import chaos
+from namazu_tpu.obs import spans
 from namazu_tpu.policy.base import register_policy
 from namazu_tpu.policy.tpu import TPUSearchPolicy
 from namazu_tpu_torch import chaos as seams
@@ -53,6 +59,7 @@ from namazu_tpu_torch.policy.tpu import (
     policy_device,
     wire_remote_surrogate,
 )
+from namazu_tpu_torch_sidecar import SINK
 
 
 def _records(trace) -> list:
@@ -93,16 +100,22 @@ class TorchSearchPolicy(TPUSearchPolicy):
         super().load_config(config)
         self.device = policy_device(self.platform, self.n_devices,
                                     self.dcn_hosts)
+        # the reference's phase timer annotates jax.profiler when JAX is
+        # importable; the port's nmz:<phase> ranges do that here, so take
+        # its documented no-JAX fallback (set here, not at import: a run
+        # that lists this plugin but picks tpu_search keeps the
+        # reference's annotations)
+        spans._trace_annotation_cls = False
 
     def _build_search(self):
         search = build_search(self._search_params(), self.device,
                               dcn_hosts=self.dcn_hosts)
-        search.telemetry = obs
+        search.telemetry = SINK
         seams.set_decider(chaos.decide)
         return search
 
     def _ingest_history(self, search):
-        # the ingest reports to search.telemetry, the reference's obs
+        # the ingest reports to search.telemetry, the sidecar shim's sink
         storage = None if self._storage is None else _History(self._storage)
         return ingest_history(search, storage, ingest_params(
             self._ingest_params()._asdict()))

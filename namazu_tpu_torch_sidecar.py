@@ -62,11 +62,23 @@ log = logging.getLogger("namazu_tpu_torch.sidecar")
 class ObsSink:
     """The reference's ``obs`` as the port's telemetry sink
     (``namazu_tpu_torch/obs.py``): every call goes to ``namazu_tpu.obs``,
-    and the collector calls, which that module does not carry, to
-    ``obs.federation``."""
+    the collector calls, which that module does not carry, to
+    ``obs.federation``, and the causality stamps to ``obs.context``
+    while the reference's plane is on (``obs.metrics.enabled()``), as
+    its framed server and knowledge client stamp. The ``torch_search``
+    policy shim hands in the same sink."""
 
     register_collector = staticmethod(federation.register_collector)
     unregister_collector = staticmethod(federation.unregister_collector)
+
+    @staticmethod
+    def wire_stamp():
+        return obs.context.wire_stamp() if obs.metrics.enabled() else None
+
+    @staticmethod
+    def observe_wire(ctx) -> None:
+        if obs.metrics.enabled():
+            obs.context.observe_wire(ctx)
 
     def __getattr__(self, name: str):
         return getattr(obs, name)

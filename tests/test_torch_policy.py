@@ -35,6 +35,7 @@ from namazu_tpu.utils.policy_tester import pump_concurrent
 from namazu_tpu_torch.history import load_storage
 from namazu_tpu_torch.ops import trace_encoding as tte
 from namazu_tpu_torch.policy import tpu as tpol
+from namazu_tpu_torch_sidecar import SINK
 from test_torch_cuda import campaign
 from test_torch_sidecar import CKPT_KEYS
 from test_tpu_policy import record_run
@@ -230,7 +231,7 @@ def test_build_search_matches_the_reference(tmp_path, knobs):
     ref.load_config(Config({"explore_policy_param": params(**knobs)}))
     js = ref._build_search()
     s = torch_policy(params(**knobs))._build_search()
-    assert s.telemetry is obs
+    assert s.telemetry is SINK
     assert _asdict(s.cfg) == _asdict(js.cfg)
     assert s.BACKEND == js.BACKEND
     if s.BACKEND == "mcts":

@@ -461,16 +461,24 @@ def test_closing_the_knowledge_service_unregisters_its_gauges(tmp_path):
 def test_the_sink_carries_the_reference_calls():
     """Every call of the port's sink is a reference call of the same
     parameters: ``namazu_tpu.obs``'s, the collector calls
-    ``obs.federation``'s."""
+    ``obs.federation``'s, the stamp calls ``obs.context``'s (the shim's
+    sink makes those only while the plane is on, so they are wrapped;
+    ``tests/test_torch_causality.py`` holds what they do)."""
     from namazu_tpu import obs
 
     calls = [n for n, _ in inspect.getmembers(tobs.Telemetry,
                                                inspect.isfunction)
              if not n.startswith("_")]
-    assert len(calls) == 19
+    assert len(calls) == 21
     for name in calls:
-        ref = getattr(obs if hasattr(obs, name) else federation, name)
         port = getattr(tobs.Telemetry, name)
+        if name in ("wire_stamp", "observe_wire"):
+            ref = getattr(obs.context, name)
+            assert (len(inspect.signature(port).parameters) - 1
+                    == len(inspect.signature(ref).parameters)), name
+            assert callable(getattr(shim.SINK, name))
+            continue
+        ref = getattr(obs if hasattr(obs, name) else federation, name)
         assert (list(inspect.signature(port).parameters)[1:]
                 == list(inspect.signature(ref).parameters)), name
         assert getattr(shim.SINK, name) is ref
