@@ -173,8 +173,16 @@ Phases, each of which fails the script on any error:
    generation are printed.
 
 Phase 2 also holds B1 at the rollout shapes N = 256 and N = 64 (A = 512,
-F = 64, K = 256) and at the bench's shape (N = 8192, A = 1024, F = 64,
-K = 256) and times it there. Several cards and several processes
+F = 64, K = 256), at phase 10's 8 lockstep trees' N = 2048 and at the
+bench's shape (N = 8192, A = 1024, F = 64, K = 256), where the grid plan splits the column walk over a cluster, with
+occupancies that mask whole ranks and int32 occupancies read on the card,
+and times it there; it prints each timed shape's plan (row tiles, split,
+blocks, rows a block, steps a block), holds rows [:64] of a main-shape
+input alone (a split grid) to the same rows inside the full launch (no
+split) bit for bit, times the MCTS shapes (and phase 10's 8 trees, N =
+2048) under the other block height too and holds its rows bit for bit
+to the plan's, and counts the CUDA kernels of one B1 call at each timed
+shape under torch.profiler (must be 1). Several cards and several processes
 are not driven here (one card): the islands and trees of phases 9-10
 share the card. Phases 11-12 print each request's or search's wall and
 ingest. The last lines are the card line, a JSON line with every
@@ -212,6 +220,8 @@ MAIN_SHAPE = (16384, 512, 64, 256)  # N = P*T, A, F, K on the main path
 ROLLOUT_SHAPES = ((256, 512, 64, 256), (64, 512, 64, 256))
 # B1 in the port's bench (namazu_tpu_torch/bench.py): P, A, F, K
 BENCH_SHAPE = (8192, 1024, 64, 256)
+# B1 in phase 10's 8 lockstep MCTS trees: 8 trees x 64 rollouts x 4 traces
+TREES_SHAPE = (2048, 512, 64, 256)
 SINGLE_SHAPE = (16384, 512, 256)  # B2 held at N, A, K
 POPULATION, H, K, TRACES, EVENTS, GENERATIONS = 4096, 256, 256, 4, 2000, 64
 HISTORY_RUNS, HISTORY_FAILURES = 48, 8
@@ -328,24 +338,79 @@ def sass_counts(lib, ops=("HGMMA", "UTMALDG")) -> dict:
 # -- phase 2: kernels against their plain versions --------------------------
 
 
-def cuda_time_cold_ms(fn, iters: int = 20) -> float:
-    """Mean time of ``fn`` with a cold L2: a buffer larger than the L2 is
-    written before each launch, and only the launches are timed."""
+SLEEP_CYCLES = 1 << 24  # ~8 ms of torch.cuda._sleep at the H100's clock
+
+
+def queued(enqueue):
+    """``enqueue()``'s result, its work queued on the card while the card
+    sleeps, so that the card runs it back to back at its own pace and not
+    at the host's (a call whose host side outlasts its kernel would
+    otherwise time the host). Checks that the host finished queueing
+    before the card woke; else retries with a four times longer sleep,
+    and fails after three tries. Not every call gets ahead on an H100:
+    ``torch.cdist`` waits for the card inside the call, and 50 calls of a
+    plain version (some 20 launches each) did not either."""
+    import torch
+
+    cycles = SLEEP_CYCLES
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        woke = torch.cuda.Event()
+        woke.record()
+        out = enqueue()
+        ahead = not woke.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return out
+        cycles *= 4
+    raise SmokeFailure("the host could not queue ahead of the card")
+
+
+def device_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean time of ``fn`` on the card: ``iters`` calls queued ahead of it
+    (:func:`queued`), between two CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+
+    def enqueue():
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        return start, stop
+
+    start, stop = queued(enqueue)
+    return start.elapsed_time(stop) / iters
+
+
+def device_time_cold_ms(fn, iters: int = 20) -> float:
+    """Mean time of ``fn`` on the card with a cold L2: a buffer larger than
+    the L2 is written before each call, only the calls are timed, all of
+    it queued ahead of the card."""
     import torch
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
     fn()
-    events = []
-    for _ in range(iters):
-        flush.fill_(1.0)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        events.append((start, stop))
-    torch.cuda.synchronize()
+
+    def enqueue():
+        events = []
+        for _ in range(iters):
+            flush.fill_(1.0)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            events.append((start, stop))
+        return events
+
+    events = queued(enqueue)
     return sum(a.elapsed_time(b) for a, b in events) / iters
 
 
@@ -429,10 +494,16 @@ def real_feature_rows(search, refs):
 
 
 def timing(kernel, plain, library, bound) -> dict:
+    """The kernel's time on the card (calls queued ahead of it, warm and
+    with a cold L2), and at the host's pace (``host_paced_ms``: launches
+    timed as the host issues them, which at small shapes times the
+    wrapper's host side, not the card); the plain version's and the
+    library call's at the host's pace (see :func:`queued`)."""
     bound_ms, bound_by, simt_ms = bound
     return {
-        "ms": cuda_time_ms(kernel),
-        "ms_cold_l2": cuda_time_cold_ms(kernel),
+        "ms": device_time_ms(kernel),
+        "ms_cold_l2": device_time_cold_ms(kernel),
+        "host_paced_ms": cuda_time_ms(kernel),
         "plain_ms": cuda_time_ms(plain),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -445,6 +516,7 @@ def timing(kernel, plain, library, bound) -> dict:
 def report(name, shape, numbers, max_err) -> None:
     print(f"  {name} at {shape}: kernel_ms {numbers['ms']:.5f} "
           f"cold_l2_ms {numbers['ms_cold_l2']:.5f} "
+          f"host_paced_ms {numbers['host_paced_ms']:.5f} "
           f"plain_ms {numbers['plain_ms']:.5f} "
           f"library_ms {numbers['library_ms']:.5f} "
           f"bound_us {numbers['bound_ms'] * 1e3:.3f} "
@@ -507,7 +579,11 @@ def check_single_kernel(device, real=None, timed=True) -> dict:
                  (SINGLE_SHAPE, 0), ((33, 7, 64), None), ((33, 7, 64), 3),
                  ((33, 7, 64), 0), ((300, 100, 128), 50),
                  ((16384 + 37, 512, 100), None), ((4096 + 5, 200, 512), 150),
+                 ((64, 512, 256), 1), ((1, 1, 256), None),
              ])]
+    cases.append(("uniform (256, 512, 256) valid_n 300, int32 on the card",
+                  pair_inputs(256, 512, 1, 256, 220, device)[:2],
+                  torch.tensor(300, dtype=torch.int32, device=device), False))
     cases.append(("near-binary, exact duplicates "
                   f"{SINGLE_SHAPE}", near_binary_inputs(
                       SINGLE_SHAPE[0], SINGLE_SHAPE[1], 1, SINGLE_SHAPE[2],
@@ -545,6 +621,32 @@ def check_single_kernel(device, real=None, timed=True) -> dict:
     return out
 
 
+def plan_of(pd, shape) -> dict:
+    """The grid plan of B1 at ``shape`` on this card, printed with the
+    card's limits it was made from (SMs; clusters of (consumers, split)
+    the card runs at once)."""
+    import torch
+
+    N, A, F, Kc = shape
+    plan = pd.card_plan(torch.device("cuda"), N, A, F, Kc)
+    sms, clusters = pd.card_limits(torch.device("cuda"), Kc)
+    out = dict(plan._asdict(), blocks=plan.blocks, sms=sms,
+               clusters_at_once={f"{c}x{s}": n for c, s, n in clusters})
+    print(f"  plan at {shape}: {plan.row_tiles} row tiles, split "
+          f"{plan.split}, {plan.blocks} blocks of {plan.bm} rows, "
+          f"{plan.steps} steps a block (busiest rank), {plan.waves} "
+          f"wave(s), ranges {list(plan.ranges)}; {sms} SMs, clusters at "
+          f"once (warpgroups x split) {out['clusters_at_once']}")
+    return out
+
+
+def kernels_a_call(fn) -> tuple:
+    """``(CUDA kernels, their device ms)`` of one warm call of ``fn``
+    under torch.profiler."""
+    prof = device_profile(fn, 1)
+    return int(prof["launches"]), prof["device_ms"]
+
+
 def check_pair_kernel(device, real=None, timed=True) -> dict:
     import torch
 
@@ -552,6 +654,10 @@ def check_pair_kernel(device, real=None, timed=True) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    def on_card(n):  # an occupancy the kernel reads on the card
+        return torch.tensor(n, dtype=torch.int32, device=device)
+
     cases = [(f"uniform {s} occ {(an, fn)}", pair_inputs(*s, 100 + i, device),
               an, fn, False)
              for i, (s, an, fn) in enumerate([
@@ -568,9 +674,24 @@ def check_pair_kernel(device, real=None, timed=True) -> dict:
                  (ROLLOUT_SHAPES[0], 300, 17),
                  (ROLLOUT_SHAPES[1], None, None),
                  (ROLLOUT_SHAPES[1], 300, 17),
+                 (TREES_SHAPE, None, None),
+                 (TREES_SHAPE, 300, 17),
                  (BENCH_SHAPE, None, None),
                  (BENCH_SHAPE, 700, 33),
+                 # every rank but the first masked (archive), the failure
+                 # tile's rank masked whole
+                 (ROLLOUT_SHAPES[0], 1, 0),
+                 (ROLLOUT_SHAPES[1], 1, 0),
+                 ((256, 1, 1, 256), None, None),
+                 ((64, 1, 1, 256), 1, 0),
+                 ((1, 1, 1, 256), None, None),
              ])]
+    for i, (s, an, fn) in enumerate([(ROLLOUT_SHAPES[0], 300, 17),
+                                     (BENCH_SHAPE, 700, 33),
+                                     (MAIN_SHAPE, 300, 0)]):
+        cases.append((f"uniform {s} occ {(an, fn)}, int32 on the card",
+                      pair_inputs(*s, 120 + i, device), on_card(an),
+                      on_card(fn), False))
     for i, exact in enumerate((True, False)):
         what = "exact archive, near failures" if exact else \
             "near archive, exact failures"
@@ -590,6 +711,20 @@ def check_pair_kernel(device, real=None, timed=True) -> dict:
             "pair kernel", pd.min_sq_distance_pair,
             pd.min_sq_distance_pair_reference, tensors,
             {"archive_n": an, "failure_n": fn}, label, cancels))
+    feats, archive, failures = pair_inputs(*MAIN_SHAPE, 12, device)
+    dev = torch.device(device)
+    check(pd.card_plan(dev, 64, *MAIN_SHAPE[1:]).split > 1
+          and pd.card_plan(dev, *MAIN_SHAPE).split == 1,
+          "rows [:64] and the main shape share a grid")
+    for occ in ((None, None), (300, 17)):
+        full = pd.min_sq_distance_pair(feats, archive, failures, *occ)
+        part = pd.min_sq_distance_pair(feats[:64], archive, failures, *occ)
+        diff = max(float((x[:64] - y).abs().max()) for x, y in zip(full, part))
+        print(f"  rows [:64] alone (split) against inside the main shape's "
+              f"launch (unsplit), occ {occ}: largest difference {diff}")
+        check(all(torch.equal(x[:64], y) for x, y in zip(full, part)),
+              f"rows [:64] differ across grids by up to {diff}")
+    del feats, archive, failures
     out = {
         "name": "min_sq_pair",
         "route": "cuda",
@@ -598,38 +733,56 @@ def check_pair_kernel(device, real=None, timed=True) -> dict:
         "launches": None,
         "max_abs_err": max_err,
     }
-    if timed:
-        N, A, F, Kc = MAIN_SHAPE
-        feats, archive, failures = pair_inputs(N, A, F, Kc, 7, device)
-        out.update(timing(
-            lambda: pd.min_sq_distance_pair(feats, archive, failures),
-            lambda: pd.min_sq_distance_pair_reference(feats, archive,
-                                                      failures),
-            lambda: (torch.cdist(feats, archive).square().amin(1),
-                     torch.cdist(feats, failures).square().amin(1)),
-            bounds_ms(N, A + F, Kc, 2)))
-        report("pair kernel", MAIN_SHAPE, out, max_err)
-        out["at_rollout_shapes"] = {}
-        for shape in ROLLOUT_SHAPES:
-            N, A, F, Kc = shape
-            f, a, fl = pair_inputs(N, A, F, Kc, 9, device)
-            t = timing(
-                lambda: pd.min_sq_distance_pair(f, a, fl),
-                lambda: pd.min_sq_distance_pair_reference(f, a, fl),
-                lambda: (torch.cdist(f, a).square().amin(1),
-                         torch.cdist(f, fl).square().amin(1)),
-                bounds_ms(N, A + F, Kc, 2))
-            out["at_rollout_shapes"][f"N={N}"] = t
-            report("pair kernel", shape, t, max_err)
-        N, A, F, Kc = BENCH_SHAPE
-        f, a, fl = pair_inputs(N, A, F, Kc, 10, device)
-        out["at_bench_shape"] = timing(
+    if not timed:
+        return out
+    for shape, seed, key in ((MAIN_SHAPE, 7, None),
+                             (ROLLOUT_SHAPES[0], 9, "N=256"),
+                             (ROLLOUT_SHAPES[1], 9, "N=64"),
+                             (TREES_SHAPE, 11, "N=2048"),
+                             (BENCH_SHAPE, 10, None)):
+        N, A, F, Kc = shape
+        f, a, fl = pair_inputs(N, A, F, Kc, seed, device)
+        t = {"plan": plan_of(pd, shape)}
+        t.update(timing(
             lambda: pd.min_sq_distance_pair(f, a, fl),
             lambda: pd.min_sq_distance_pair_reference(f, a, fl),
             lambda: (torch.cdist(f, a).square().amin(1),
                      torch.cdist(f, fl).square().amin(1)),
-            bounds_ms(N, A + F, Kc, 2))
-        report("pair kernel", BENCH_SHAPE, out["at_bench_shape"], max_err)
+            bounds_ms(N, A + F, Kc, 2)))
+        report("pair kernel", shape, t, max_err)
+        t["kernels_a_call"], t["profiled_ms"] = {}, {}
+        for what, occ in (("none", (None, None)),
+                          ("int32 on the card", (on_card(300),
+                                                 on_card(17)))):
+            n, ms = kernels_a_call(
+                lambda: pd.min_sq_distance_pair(f, a, fl, *occ))
+            t["kernels_a_call"][what], t["profiled_ms"][what] = n, ms
+            check(n == 1, f"one B1 call at {shape} with occupancies {what} "
+                          f"made {n} CUDA kernels, expected 1")
+        print(f"  kernels a B1 call at {shape}: {t['kernels_a_call']}, "
+              f"their device ms under the profiler {t['profiled_ms']}")
+        if key is not None:
+            # the other block height
+            plan = pd.card_plan(dev, N, A, F, Kc)
+            sms, clusters = pd.card_limits(dev, Kc)
+            alt = pd._plan(N, A, F, Kc, sms, 3 - plan.consumers, clusters)
+            got = pd.min_sq_distance_pair(f, a, fl)
+            other = pd._launch(f, a, fl, None, None, plan=alt)
+            check(all(torch.equal(x, y) for x, y in zip(got, other)),
+                  f"bm {alt.bm} and the plan's bm {plan.bm} differ at "
+                  f"{shape}")
+            t["other_bm"] = {"plan": dict(alt._asdict(), blocks=alt.blocks),
+                             "ms": device_time_ms(lambda: pd._launch(
+                                 f, a, fl, None, None, plan=alt))}
+            print(f"  bm {alt.bm} at {shape} ({alt.blocks} blocks, split "
+                  f"{alt.split}): kernel_ms {t['other_bm']['ms']:.5f}, "
+                  f"equal to the plan's bit for bit")
+        if shape == MAIN_SHAPE:
+            out.update(t)
+        elif key is not None:
+            out.setdefault("at_rollout_shapes", {})[key] = t
+        else:
+            out["at_bench_shape"] = t
     return out
 
 

@@ -1,5 +1,6 @@
 // hopper_ptx.cuh: the Hopper (sm_90a) instructions the port's kernels use,
-// as inline PTX: mbarriers, TMA tile loads, the TF32 split and wgmma.
+// as inline PTX: mbarriers, cluster barriers and distributed shared
+// memory, TMA tile loads, the TF32 split and wgmma.
 #pragma once
 
 #include <cuda.h>
@@ -71,6 +72,36 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
 // arrives at barrier `id` (expecting `threads`) without waiting
 __device__ __forceinline__ void named_bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// -- thread block clusters -----------------------------------------------------
+
+// every thread of every block of the cluster arrives (release: this
+// thread's earlier shared-memory writes become visible to the cluster),
+// then waits for all of them (acquire); threads need not be converged
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// the shared::cluster address of the variable at shared address `saddr`
+// of this block, in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t saddr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(saddr), "r"(rank));
+  return out;
+}
+
+// a float from another block's shared memory (distributed shared memory)
+__device__ __forceinline__ float ld_cluster_f32(uint32_t caddr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];"
+               : "=f"(v)
+               : "r"(caddr)
+               : "memory");
+  return v;
 }
 
 // -- TMA -----------------------------------------------------------------------

@@ -31,9 +31,10 @@
 //
 // Design. The TPU kernels walk a sequential grid and carry their running
 // minima in the output block. Hopper blocks run in parallel, so each block
-// owns 64 * C feature rows (C = 2 consumer warpgroups where the tile fits,
-// else 1) and loops inside the block over every column tile of its
-// segments, the running minima in registers. Warp specialisation:
+// owns 64 * C feature rows (C = 1 or 2 consumer warpgroups, as the host
+// plan says: 2 where the row tiles fill the card and the tile fits) and
+// loops inside the block over column tiles of its segments, the running
+// minima in registers. Warp specialisation:
 //  - the feature tile [64C, K] arrives once by TMA (128-byte swizzle) and
 //    stays resident in shared memory for every column tile;
 //  - producer warp 0 streams 64-row x 32-deep column boxes by TMA into a
@@ -52,11 +53,29 @@
 // No [N, A] matrix reaches device memory: the traffic is feats once, the
 // column rows once per block (they stay in L2), and the [N] outputs.
 //
+// The split. A block's time follows the (column tile, k box) steps it
+// walks, ~1.15 us each with two consumer warpgroups, and one block runs
+// on an SM (~199 KB of shared memory at K = 256). Where the feature tiles
+// alone leave SMs idle (the MCTS rollouts' N = 64-256, the bench's N =
+// 8192 at A = 1024), the host plan (ops/pair_distance.py::grid_plan)
+// splits the column walk: a
+// thread-block cluster of S blocks shares one feature tile, and rank r
+// walks the column tiles [r * T / S, (r + 1) * T / S) of the T tiles
+// (archive tiles, then failure tiles). Each rank folds its own minima, a
+// segment none of its tiles belongs to staying at +inf; after a cluster
+// barrier rank 0 reads the other ranks' per-row minima from their shared
+// memory (distributed shared memory), takes the min, clamps it and writes
+// nov and bug. One launch, no workspace, no atomics, and the result is the
+// unsplit kernel's bit for bit: each tile's minima are computed alike and
+// min is exact. S = 1 launches without a cluster, as before the split.
+//
 // Zero-filled padding (ragged K, rows past A or F) becomes -1/2 on both
-// sides and still adds nothing to d2. The occupancies are read from device
-// memory (int32[SEGMENTS]), so a later capture into a CUDA graph never
-// bakes them in. Tensor maps are
-// encoded at every call (feats is a fresh tensor each generation).
+// sides and still adds nothing to d2. Each occupancy is either read from
+// device memory (an int32 the caller holds there, so a later capture into a
+// CUDA graph never bakes it in) or passed by value (the caller's int, or
+// the segment's row count where it has none): the wrapper launches
+// nothing but the kernel. Tensor maps are encoded at every call (feats is
+// a fresh tensor each generation).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -80,11 +99,20 @@ constexpr int SMEM_LIMIT = 232448;      // per block on an H100
 constexpr float MASK_BIG = 3.4e38f;
 constexpr float CENTER = 0.5f;          // subtracted from every coordinate
 constexpr int ORDER_BAR = 1;            // named barrier ordering the consumers
+constexpr int MAX_SPLIT = 8;            // ranks of a split: the portable cluster
 
 // error codes of the C entries besides cudaError_t values (all negative)
 constexpr int ERR_WIDTH = -1;      // K does not fit the resident tile
 constexpr int ERR_NO_ENCODE = -2;  // cuTensorMapEncodeTiled unavailable
 constexpr int ERR_ENCODE = -3;     // cuTensorMapEncodeTiled refused a map
+constexpr int ERR_PLAN = -4;       // a grid plan the kernel does not take
+
+// an occupancy: read from device memory where `ptr` is set, else `value`
+struct Occ {
+  const int* ptr;
+  int value;
+  __device__ int get() const { return ptr != nullptr ? *ptr : value; }
+};
 
 __host__ __device__ constexpr int feats_bytes(int kb, int consumers) {
   return kb * consumers * WG_ROWS * BK * 4;
@@ -92,10 +120,12 @@ __host__ __device__ constexpr int feats_bytes(int kb, int consumers) {
 
 // dynamic shared memory: 1024 bytes of alignment slack, the resident
 // feature tile, the ring (hi and lo per stage), the ring's column norms,
-// the barriers (feats, then full/ready/empty per stage)
+// the barriers (feats, then full/ready/empty per stage), a split rank's
+// per-row minima (nov, then bug)
 __host__ __device__ constexpr int smem_bytes(int kb, int consumers) {
   return 1024 + feats_bytes(kb, consumers) + STAGES * 2 * BOX_BYTES +
-         STAGES * BN * 4 + (1 + 3 * STAGES) * 8;
+         STAGES * BN * 4 + (1 + 3 * STAGES) * 8 +
+         2 * consumers * WG_ROWS * 4;
 }
 
 // SEGMENTS = 2: archive then failures, minima into nov and bug.
@@ -105,9 +135,9 @@ __global__ void __launch_bounds__(384, 1)
 min_sq_kernel(const __grid_constant__ CUtensorMap feats_map,
               const __grid_constant__ CUtensorMap arch_map,
               const __grid_constant__ CUtensorMap fail_map,
-              const int* __restrict__ occ, float* __restrict__ nov,
+              const Occ occ_a, const Occ occ_f, float* __restrict__ nov,
               float* __restrict__ bug, int N, int A, int F, int K,
-              int consumers) {
+              int consumers, int split) {
   static_assert(SEGMENTS == 1 || SEGMENTS == 2, "one or two segments");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // swizzled TMA boxes need 1024-byte aligned destinations
@@ -121,11 +151,17 @@ min_sq_kernel(const __grid_constant__ CUtensorMap feats_map,
   uint64_t* full = feats_full + 1;
   uint64_t* ready = full + STAGES;
   uint64_t* empty = ready + STAGES;
+  float* pmin = reinterpret_cast<float*>(empty + STAGES);  // [2][BM]
 
   const int tiles_a = (A + BN - 1) / BN;
   const int tiles = tiles_a + (SEGMENTS == 2 ? (F + BN - 1) / BN : 0);
-  const int iters = tiles * KB;  // (column tile, k box) in order
-  const int row0 = blockIdx.x * BM;
+  // blocks blockIdx.x / split share a feature tile (a cluster when split
+  // > 1); rank blockIdx.x % split walks the column tiles [t_lo, t_hi)
+  const int rank = blockIdx.x % split;
+  const int row0 = (blockIdx.x / split) * BM;
+  const int t_lo = rank * tiles / split;
+  const int t_hi = (rank + 1) * tiles / split;
+  const int iters = (t_hi - t_lo) * KB;  // (column tile, k box) in order
 
   if (threadIdx.x == 0) {
     mbar_init(feats_full, 1);
@@ -144,8 +180,8 @@ min_sq_kernel(const __grid_constant__ CUtensorMap feats_map,
 
   if (wg == consumers) {
     // ---- producer warpgroup -------------------------------------------
-    if (warp == 0) {
-      if (lane != 0) return;
+    // (with a split every thread stays for the cluster barriers below)
+    if (warp == 0 && lane == 0) {
       mbar_expect_tx(feats_full, feats_bytes(KB, consumers));
       for (int kb = 0; kb < KB; ++kb)
         tma_load_2d(fsm + kb * BM * BK * 4, &feats_map, feats_full, kb * BK,
@@ -153,7 +189,7 @@ min_sq_kernel(const __grid_constant__ CUtensorMap feats_map,
       int slot = 0;
       uint32_t phase = 0;
       for (int it = 0; it < iters; ++it) {
-        const int t = it / KB;
+        const int t = t_lo + it / KB;
         const int kb = it % KB;
         const bool is_arch = t < tiles_a;
         mbar_wait(&empty[slot], phase ^ 1);
@@ -166,18 +202,18 @@ min_sq_kernel(const __grid_constant__ CUtensorMap feats_map,
           phase ^= 1;
         }
       }
-    } else if (warp <= 2) {
+    } else if (warp == 1 || warp == 2) {
       // splitter p owns row p of every landed box: its 8 16-byte chunks,
       // visited in a rotated order so the 8 lanes of a quarter-warp hit
       // 8 distinct bank groups
       const int p = threadIdx.x - consumers * 128 - 32;
-      const int live_a = min(max(occ[0], 0), A);
-      const int live_f = SEGMENTS == 2 ? min(max(occ[1], 0), F) : 0;
+      const int live_a = min(max(occ_a.get(), 0), A);
+      const int live_f = SEGMENTS == 2 ? min(max(occ_f.get(), 0), F) : 0;
       float norm = 0.f;
       int slot = 0;
       uint32_t phase = 0;
       for (int it = 0; it < iters; ++it) {
-        const int t = it / KB;
+        const int t = t_lo + it / KB;
         const int kb = it % KB;
         mbar_wait(&full[slot], phase);
         float4* hi = reinterpret_cast<float4*>(ring + slot * 2 * BOX_BYTES) +
@@ -216,6 +252,9 @@ min_sq_kernel(const __grid_constant__ CUtensorMap feats_map,
         }
       }
     }
+    if (split == 1) return;
+    cluster_sync();  // the ranks' minima are in place
+    cluster_sync();  // rank 0 has read them
     return;
   }
 
@@ -271,7 +310,7 @@ min_sq_kernel(const __grid_constant__ CUtensorMap feats_map,
   int slot = 0;
   uint32_t phase = 0;
   for (int it = 0; it < iters; ++it) {
-    const int t = it / KB;
+    const int t = t_lo + it / KB;
     const int kb = it % KB;
     const uint8_t* box = fsm + kb * BM * BK * 4;
 #pragma unroll
@@ -356,17 +395,43 @@ min_sq_kernel(const __grid_constant__ CUtensorMap feats_map,
       bug1 = fminf(bug1, __shfl_xor_sync(0xffffffffu, bug1, off));
     }
   }
-  if (t4 == 0) {
-    const int gr = row0 + r;
-    if (gr < N) {
-      nov[gr] = fmaxf(nov0, 0.f);
-      if (SEGMENTS == 2) bug[gr] = fmaxf(bug0, 0.f);
+  if (split == 1) {
+    if (t4 == 0) {
+      const int gr = row0 + r;
+      if (gr < N) {
+        nov[gr] = fmaxf(nov0, 0.f);
+        if (SEGMENTS == 2) bug[gr] = fmaxf(bug0, 0.f);
+      }
+      if (gr + 8 < N) {
+        nov[gr + 8] = fmaxf(nov1, 0.f);
+        if (SEGMENTS == 2) bug[gr + 8] = fmaxf(bug1, 0.f);
+      }
     }
-    if (gr + 8 < N) {
-      nov[gr + 8] = fmaxf(nov1, 0.f);
-      if (SEGMENTS == 2) bug[gr + 8] = fmaxf(bug1, 0.f);
+    return;
+  }
+
+  // ---- the split: rank 0 takes the min over the cluster's ranks ----------
+  if (t4 == 0) {
+    pmin[r] = nov0;
+    pmin[r + 8] = nov1;
+    if (SEGMENTS == 2) {
+      pmin[BM + r] = bug0;
+      pmin[BM + r + 8] = bug1;
     }
   }
+  cluster_sync();
+  if (rank == 0) {
+    const int n = SEGMENTS * BM;
+    for (int i = threadIdx.x; i < n; i += consumers * 128) {
+      const uint32_t at = smem_addr(pmin + i);
+      float v = pmin[i];
+      for (int q = 1; q < split; ++q)
+        v = fminf(v, ld_cluster_f32(map_rank(at, q)));
+      const int gr = row0 + i % BM;
+      if (gr < N) (i < BM ? nov : bug)[gr] = fmaxf(v, 0.f);
+    }
+  }
+  cluster_sync();  // no rank leaves before rank 0 has read its minima
 }
 
 // -- host side -----------------------------------------------------------------
@@ -433,11 +498,14 @@ int consumers_for(int K) {
 
 template <int SEGMENTS>
 int launch(const float* feats, const float* archive, const float* failures,
-           const int* occ, float* nov, float* bug, int N, int A, int F,
-           int K, void* stream) {
+           Occ occ_a, Occ occ_f, float* nov, float* bug, int N, int A, int F,
+           int K, int consumers, int split, void* stream) {
   if (N <= 0) return 0;
-  const int consumers = K > 0 ? consumers_for(K) : 0;
-  if (consumers == 0 || K % 4) return ERR_WIDTH;
+  if (K <= 0 || K % 4 || consumers < 1 || consumers > 2 ||
+      smem_bytes((K + BK - 1) / BK, consumers) > SMEM_LIMIT)
+    return ERR_WIDTH;
+  const int tiles = (A + BN - 1) / BN + (SEGMENTS == 2 ? (F + BN - 1) / BN : 0);
+  if (split < 1 || split > MAX_SPLIT || split > tiles) return ERR_PLAN;
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return ERR_NO_ENCODE;
   CUtensorMap fmap, amap, gmap;
@@ -453,10 +521,31 @@ int launch(const float* feats, const float* archive, const float* failures,
       smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int bm = consumers * WG_ROWS;
-  min_sq_kernel<SEGMENTS>
-      <<<(N + bm - 1) / bm, 128 * (consumers + 1), smem,
-         static_cast<cudaStream_t>(stream)>>>(fmap, amap, gmap, occ, nov,
-                                              bug, N, A, F, K, consumers);
+  const int row_tiles = (N + bm - 1) / bm;
+  if (split == 1) {
+    min_sq_kernel<SEGMENTS>
+        <<<row_tiles, 128 * (consumers + 1), smem,
+           static_cast<cudaStream_t>(stream)>>>(fmap, amap, gmap, occ_a,
+                                                occ_f, nov, bug, N, A, F, K,
+                                                consumers, 1);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(row_tiles * split);
+  config.blockDim = dim3(128 * (consumers + 1));
+  config.dynamicSmemBytes = smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  e = cudaLaunchKernelEx(&config, min_sq_kernel<SEGMENTS>, fmap, amap, gmap,
+                         occ_a, occ_f, nov, bug, N, A, F, K, consumers,
+                         split);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -465,24 +554,63 @@ int launch(const float* feats, const float* archive, const float* failures,
 // Launches on `stream` and returns 0, a cudaError_t of the launch, or a
 // negative code (see nmz_cuda_error_string). Takes f32 row-major
 // contiguous feats [N, K], archive [A, K], failures [F, K] with 16-byte
-// aligned bases, K % 4 == 0 and K <= nmz_min_sq_max_k(), occ int32[2],
-// and writes nov [N], bug [N]. Allocates nothing and does not synchronise.
+// aligned bases, K % 4 == 0 and K <= nmz_min_sq_max_k(), and writes
+// nov [N], bug [N]. Each occupancy is a pointer to one device int32 (read
+// by the kernel) or, where that pointer is null, the value after it (the
+// wrapper passes A or F for "every row live"). `consumers` (1 or 2: 64 or
+// 128 feature rows a block) and `split` (1, or the ranks of a cluster, at
+// most 8 and at most the column tiles) are the host plan's. Allocates
+// nothing and does not synchronise.
 extern "C" int nmz_min_sq_pair_f32(const float* feats, const float* archive,
-                                   const float* failures, const int* occ,
+                                   const float* failures,
+                                   const int* archive_n, int archive_n_value,
+                                   const int* failure_n, int failure_n_value,
                                    float* nov, float* bug, int N, int A,
-                                   int F, int K, void* stream) {
-  return launch<2>(feats, archive, failures, occ, nov, bug, N, A, F, K,
-                   stream);
+                                   int F, int K, int consumers, int split,
+                                   void* stream) {
+  return launch<2>(feats, archive, failures, Occ{archive_n, archive_n_value},
+                   Occ{failure_n, failure_n_value}, nov, bug, N, A, F, K,
+                   consumers, split, stream);
 }
 
 // The single-segment kernel: min over archive rows only. Takes feats
-// [N, K], archive [A, K] and occ int32[1] (valid_n), writes out [N]. Same
-// launch contract as nmz_min_sq_pair_f32.
+// [N, K], archive [A, K] and the occupancy valid_n (pointer or value, as
+// above), writes out [N]. Same launch contract as nmz_min_sq_pair_f32.
 extern "C" int nmz_min_sq_f32(const float* feats, const float* archive,
-                              const int* occ, float* out, int N, int A,
-                              int K, void* stream) {
-  return launch<1>(feats, archive, nullptr, occ, out, nullptr, N, A, 0, K,
-                   stream);
+                              const int* valid_n, int valid_n_value,
+                              float* out, int N, int A, int K, int consumers,
+                              int split, void* stream) {
+  return launch<1>(feats, archive, nullptr, Occ{valid_n, valid_n_value},
+                   Occ{nullptr, 0}, out, nullptr, N, A, 0, K, consumers,
+                   split, stream);
+}
+
+// How many clusters of `split` pair-kernel blocks of `consumers` consumer
+// warpgroups at width K the device can hold at once (the occupancy
+// calculator's answer), or a negative code / cudaError_t.
+extern "C" int nmz_min_sq_max_active_clusters(int K, int consumers,
+                                              int split) {
+  if (K <= 0 || consumers < 1 || consumers > 2) return ERR_WIDTH;
+  const int smem = smem_bytes((K + BK - 1) / BK, consumers);
+  if (smem > SMEM_LIMIT) return ERR_WIDTH;
+  cudaError_t e = cudaFuncSetAttribute(
+      min_sq_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(split);
+  config.blockDim = dim3(128 * (consumers + 1));
+  config.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, min_sq_kernel<2>, &config);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return clusters;
 }
 
 // The widest K whose feature tile stays resident (one consumer warpgroup).
@@ -499,6 +627,8 @@ extern "C" const char* nmz_cuda_error_string(int code) {
       return "feature width K does not fit the kernel's resident tile";
     case ERR_NO_ENCODE:
       return "cuTensorMapEncodeTiled could not be looked up";
+    case ERR_PLAN:
+      return "grid plan (consumers, split) the kernel does not take";
     case ERR_ENCODE:
       snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed (CUresult %d)",
                static_cast<int>(last_encode_error));

@@ -1,6 +1,10 @@
 """namazu_tpu_torch on the card: the pair-distance kernel (B1) and the
-single-archive kernel (B2) against their plain versions, the wrapper's
-input checks, a small search that must launch B1 once per generation
+single-archive kernel (B2) against their plain versions (the split grid
+at small N and the bench's N with whole ranks masked and int32
+occupancies read on the card included), rows equal bit for bit across
+grids, one CUDA kernel a B1 call under torch.profiler, the plan's
+shared-memory model against the library's, the wrapper's input checks, a
+small search that must launch B1 once per generation
 and once more per surrogate re-rank, the fault and order-mode scorer on
 the card against the CPU (ranks and drop counts exactly), and an MCTS
 search that launches B1 once per simulation, and phases 9-10 in small (8
@@ -131,6 +135,78 @@ def test_kernels_at_ragged_widths(card, N, A, F, K, an, fn):
     torch.cuda.synchronize()
     for x, y in zip(got + (single,), want + want[:1]):
         torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+
+
+def rand_rows(card, seed, K, *rows):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return tuple(torch.rand((n, K), generator=g, device=card) for n in rows)
+
+
+def int32(card, n):
+    return torch.tensor(n, dtype=torch.int32, device=card)
+
+
+@pytest.mark.parametrize("A,F", [(512, 64), (513, 65), (1, 1), (1024, 64)])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 129, 256, 2048, 8192])
+def test_split_grid_matches_plain_version(card, N, A, F):
+    """The grid plan's split (several ranks of a cluster over the column
+    tiles) at small N and the bench's N, with occupancies that mask whole
+    ranks (archive_n = 1, failure_n = 0) and read from the card."""
+    feats, archive, failures = rand_rows(card, N + A, 256, N, A, F)
+    for an, fn in ((None, None), (1, 0), (int32(card, min(300, A)),
+                                          int32(card, min(17, F)))):
+        got = pd.min_sq_distance_pair(feats, archive, failures, an, fn)
+        want = pd.min_sq_distance_pair_reference(feats, archive, failures,
+                                                 an, fn)
+        single = pd.min_sq_distance(feats, archive, an)
+        torch.cuda.synchronize()
+        for x, y in zip(got + (single,), want + want[:1]):
+            torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("occ", [(None, None), (300, 17)])
+def test_rows_agree_bitwise_across_grids(card, occ):
+    """Rows [:64] alone (a split grid) and inside the main shape's launch
+    (unsplit): each tile's minima are computed alike and min is exact."""
+    feats, archive, failures = rand_rows(card, 12, 256, 16384, 512, 64)
+    assert pd.card_plan(card, 64, 512, 64, 256).split > 1
+    assert pd.card_plan(card, 16384, 512, 64, 256).split == 1
+    full = pd.min_sq_distance_pair(feats, archive, failures, *occ)
+    part = pd.min_sq_distance_pair(feats[:64], archive, failures, *occ)
+    for x, y in zip(full, part):
+        assert torch.equal(x[:64], y)
+
+
+@pytest.mark.parametrize("N,A", [(16384, 512), (8192, 1024), (2048, 512),
+                                 (256, 512), (64, 512)])
+def test_one_kernel_a_call(card, N, A):
+    """A B1 call with no occupancies or int32 ones on the card launches
+    the kernel and nothing else."""
+    feats, archive, failures = rand_rows(card, 3, 256, N, A, 64)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for occ in ((None, None), (int32(card, 300), int32(card, 17))):
+        pd.min_sq_distance_pair(feats, archive, failures, *occ)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            pd.min_sq_distance_pair(feats, archive, failures, *occ)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
+
+
+def test_plan_matches_the_library(card):
+    """The plan's shared-memory model gives the library's widest K, a
+    cluster of the most ranks fits the card, and the plan at phase 10's
+    8 trees (2048 rows) runs in one wave of the clusters the card holds."""
+    widest = max(k for k in range(4, 1025, 4)
+                 if pd._smem_bytes(-(-k // pd.BK), 1) <= pd.SMEM_LIMIT)
+    assert pd._kernels()[3] == widest
+    assert pd.max_active_clusters(256, 2, pd.MAX_SPLIT) >= 1
+    plan = pd.card_plan(card, 2048, 512, 64, 256)
+    assert plan.waves == 1 and plan.row_tiles <= pd.max_active_clusters(
+        256, plan.consumers, plan.split)
 
 
 def test_kernels_on_the_search_s_own_feature_rows(card):

@@ -124,6 +124,178 @@ def test_launch_count_stays_zero_on_cpu():
     assert pd.SINGLE_LAUNCHES == 0
 
 
+# -- the kernel's grid plan and its split of the column walk ----------------
+#
+# The card's launch is planned on the host (pair_distance.grid_plan): where
+# the feature tiles leave SMs idle, a cluster of ranks splits the column
+# tiles and rank 0 takes the min of the ranks' minima. The kernel runs only
+# on the card; here the plan is checked, and the split is emulated on the
+# plain version's distances: per-rank minima over each rank's tiles, then
+# their min, which must equal the unsplit min bit for bit (min is exact).
+
+H100_SMS = 132
+MAIN, BENCH = (16384, 512, 64, 256), (8192, 1024, 64, 256)
+ROLLOUTS = [(256, 512, 64, 256), (64, 512, 64, 256)]
+TREES = (2048, 512, 64, 256)  # 8 lockstep MCTS trees x 64 rollouts x 4
+PLAN_SHAPES = [MAIN, BENCH, *ROLLOUTS, TREES, *SHAPES, (1, 512, 64, 256),
+               (1, 1, 1, 64)]
+
+
+def column_tiles(A, F):
+    return -(-A // pd.BN), -(-F // pd.BN)
+
+
+@pytest.mark.parametrize("N,A,F,K", PLAN_SHAPES)
+def test_grid_plan_splits_every_column_tile_once(N, A, F, K):
+    plan = pd.grid_plan(N, A, F, K, H100_SMS)
+    ta, tf = column_tiles(A, F)
+    owned = [t for lo, hi in plan.ranges for t in range(lo, hi)]
+    assert owned == list(range(ta + tf))  # each tile once, contiguous
+    assert len(plan.ranges) == plan.split and all(
+        hi > lo for lo, hi in plan.ranges)
+    assert 1 <= plan.split <= min(pd.MAX_SPLIT, ta + tf)
+    assert plan.split & (plan.split - 1) == 0  # a power-of-two cluster
+    assert plan.bm in (64, 128)
+    assert plan.row_tiles == -(-N // plan.bm)
+    busiest = max(hi - lo for lo, hi in plan.ranges)
+    assert plan.steps == busiest * -(-K // pd.BK)
+    # one wave: every block runs at once; of the splits that stay one wave,
+    # none walks fewer tiles a rank, and none smaller walks as few
+    assert plan.blocks <= H100_SMS or plan.split == 1
+    for s in (1, 2, 4, 8):
+        if s <= min(pd.MAX_SPLIT, ta + tf) and plan.row_tiles * s <= \
+                H100_SMS:
+            assert -(-(ta + tf) // s) >= busiest
+            if s < plan.split:
+                assert -(-(ta + tf) // s) > busiest
+
+
+def critical_steps(plan):
+    return plan.waves * plan.steps
+
+
+@pytest.mark.parametrize("N,A,F,K", PLAN_SHAPES)
+def test_grid_plan_takes_the_block_height_of_the_shorter_critical_path(
+        N, A, F, K):
+    plan = pd.grid_plan(N, A, F, K, H100_SMS)
+    other = pd._plan(N, A, F, K, H100_SMS, 3 - plan.consumers)
+    assert critical_steps(plan) < critical_steps(other) or (
+        critical_steps(plan) == critical_steps(other) and plan.bm == 64)
+
+
+def test_grid_plan_at_the_timed_shapes():
+    main = pd.grid_plan(*MAIN, H100_SMS)
+    assert (main.bm, main.row_tiles, main.split, main.blocks,
+            main.steps) == (128, 128, 1, 128, 72)  # no split: one wave
+    bench = pd.grid_plan(*BENCH, H100_SMS)
+    assert (bench.bm, bench.row_tiles, bench.split, bench.blocks,
+            bench.steps) == (128, 64, 2, 128, 72)
+    for N, rows in ((256, 4), (64, 1)):
+        p = pd.grid_plan(N, 512, 64, 256, H100_SMS)
+        assert (p.bm, p.row_tiles, p.split, p.steps) == (64, rows, 8, 16)
+    single = pd.grid_plan(16384, 512, 0, 256, H100_SMS)  # B2's main shape
+    assert (single.bm, single.split, single.steps) == (128, 1, 64)
+
+
+def test_grid_plan_keeps_to_the_clusters_the_card_holds_at_once():
+    """An H100 holds 15 clusters of 8 such blocks at once, not 132 / 8: 16
+    row tiles split 8 ways would take two waves, so the plan splits less
+    (or holds more rows a block, or fewer) and stays one wave."""
+    free = pd.grid_plan(*TREES, H100_SMS)
+    assert (free.bm, free.split, free.waves) == (128, 8, 1)
+    h100 = pd.grid_plan(*TREES, H100_SMS, ((1, 8, 15), (2, 8, 15)))
+    assert h100.waves == 1 and h100.split < 8
+    assert critical_steps(h100) == 24  # 3 column tiles a rank
+    assert free.row_tiles > 15  # its 16 clusters of 8: two waves there
+
+
+def test_grid_plan_falls_back_to_one_warpgroup_for_wide_rows():
+    assert pd.grid_plan(4096, 200, 9, 512, H100_SMS).bm == 64
+    with pytest.raises(ValueError, match="does not fit"):
+        pd.grid_plan(64, 8, 8, 1024, H100_SMS)
+
+
+def split_emulation(feats, archive, failures, an, fn, plan):
+    """B1 as the split grid computes it: each rank's minima over its own
+    column tiles (+inf for a segment it has none of), then the min over
+    the ranks, clamped at 0."""
+    d = (pd._sq_distances(feats, archive, an),
+         pd._sq_distances(feats, failures, fn))
+    ta = column_tiles(archive.shape[0], failures.shape[0])[0]
+    N = feats.shape[0]
+    ranks = []
+    for lo, hi in plan.ranges:
+        mins = [torch.full((N,), float("inf")) for _ in range(2)]
+        for t in range(lo, hi):
+            seg, j = (0, t) if t < ta else (1, t - ta)
+            cols = d[seg][:, j * pd.BN:(j + 1) * pd.BN]
+            mins[seg] = torch.minimum(mins[seg], cols.amin(-1))
+        ranks.append(mins)
+    return tuple(torch.stack([r[s] for r in ranks]).amin(0).clamp_min(0.0)
+                 for s in range(2))
+
+
+SPLIT_OCCUPANCIES = [(None, None), (300, 17), (1, 0), (0, 64)]
+
+
+@pytest.mark.parametrize("an,fn", SPLIT_OCCUPANCIES)
+@pytest.mark.parametrize("N,A,F,K", [BENCH[:1] + (520, 64, 32),
+                                     *ROLLOUTS, *SHAPES, (1, 1, 1, 64)])
+def test_split_emulation_equals_the_plain_version_bitwise(N, A, F, K, an,
+                                                          fn):
+    feats, archive, failures = (torch.from_numpy(x) for x in make_inputs(
+        N, A, F, K, seed=7))
+    an = None if an is None else min(an, A)
+    fn = None if fn is None else min(fn, F)
+    plan = pd.grid_plan(N, A, F, K, H100_SMS)
+    assert plan.split > 1
+    got = split_emulation(feats, archive, failures, an, fn, plan)
+    want = pd.min_sq_distance_pair_reference(feats, archive, failures, an,
+                                             fn)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("occupied", [False, True])
+@pytest.mark.parametrize("N", [64, 256])
+def test_port_matches_the_reference_at_the_mcts_rollout_shapes(N,
+                                                               occupied):
+    """B1 at what an MCTS rollout hands it (64 rollouts x 4 traces, or one
+    trace): the port's dispatch point against the reference's; at N = 64
+    also against the Pallas kernel in interpret mode."""
+    feats, archive, failures = make_inputs(N, 512, 64, 256, seed=8)
+    an, fn = (300, 17) if occupied else (None, None)
+    j = {} if not occupied else {"archive_n": jnp.asarray(an, jnp.int32),
+                                 "failure_n": jnp.asarray(fn, jnp.int32)}
+    f, a, g = (jnp.asarray(x) for x in (feats, archive, failures))
+    want = [jsched._min_sq_pair_best(f, a, g, **j)]
+    if N == 64:
+        want.append(min_sq_distance_pair_pallas(
+            f, a, g, tile_p=64, tile_a=64, interpret=True, **j))
+    got = tsched._min_sq_pair_best(
+        torch.from_numpy(feats), torch.from_numpy(archive),
+        torch.from_numpy(failures),
+        archive_n=None if an is None else torch.tensor(an, dtype=torch.int32),
+        failure_n=fn)
+    for w in want:
+        for x, y in zip(got, w):
+            np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=RTOL,
+                                       atol=ATOL)
+
+
+@pytest.mark.parametrize("n,want", [(None, (None, 9)), (5, (None, 5)),
+                                    ("cpu", (None, 7))])
+def test_occupancies_go_by_value_without_a_tensor_op(n, want):
+    if n == "cpu":
+        n = torch.tensor(7)
+    assert pd._occupancy(n, 9, torch.device("cpu")) == want
+
+
+def test_occupancy_must_be_one_int():
+    with pytest.raises(ValueError, match="one int"):
+        pd._occupancy(torch.tensor([1, 2]), 9, torch.device("cpu"))
+
+
 # -- B2: one archive, masked by valid_n ------------------------------------
 
 SINGLE_SHAPES = [(64, 32, 128), (300, 100, 128), (33, 7, 64)]
