@@ -102,8 +102,9 @@ Phases, each of which fails the script on any error:
    generations, re-rank, save. B1 launches 2 * 64 + 2 times; the second
    search installs the first's checkpointed best before its own; the
    checkpoint holds the reference's keys; the returned table re-scored on
-   the CPU gives the returned fitness; a recording sink sees the
-   phases and calls the reference's search makes (the policy's own
+   the CPU gives the returned fitness; a recording sink sees the port's
+   ingest sections and the phases and calls the reference's search
+   makes (the policy's own
    ``ingest`` and ``install`` phases are the reference's, which this
    script does not import; it reads the history with the port's reader,
    not through the policy's storage adapter, which
@@ -2094,7 +2095,8 @@ def drive_policy_path(device, work_dir, storage, generations=GENERATIONS,
           f"(returned {best.fitness:.6f})")
     chunks = -(-generations // sp["fused_chunk"])
     for r, (sink, (_, search, _)) in enumerate(zip(sinks, results)):
-        phases = (["encode", "evolve"] + ["host_io"] * chunks
+        phases = (["ingest_read_encode", "ingest_archive", "encode",
+                   "evolve"] + ["host_io"] * chunks
                   + ["surrogate"]
                   + ([] if search._surrogate is not None else ["extract"]))
         calls = (["search_progress"] * chunks

@@ -22,18 +22,24 @@ Three knobs fold in memory beyond the storage, as in the reference:
   known run's realized order (pooled ones included) on each ingest.
 
 ``stats``, when given, receives the seconds of the ingest's sections
-(``read_encode``, ``pool_io``, ``guidance_observe``, ``knowledge``: the
-knowledge round trips) and its counts (``warmstart_archive``: pooled
+(``read_encode``, ``pool_io``, ``knowledge``: the knowledge round
+trips, ``guidance_observe``, ``archive``: the pairs' refit, the seed
+genomes and every run's archive rows), of the two costs inside
+``read_encode`` (``read``: the storage's scan and every run's
+``trace.json`` and ``result.json``; ``encode``: every run's two views
+and failure seed) and its counts (``warmstart_archive``: pooled
 knowledge signatures new to the search; ``warmstart_coverage``: pooled
-coverage bits new to the map; ``coverage_bits``, ``one_sided``).
-The warm-start counts and the coverage map go to ``search.telemetry``
-too (``knowledge_warmstart``, ``relation_coverage``), and so do the
-knowledge client's round trips, as the reference's ingest reports them
-to ``obs``.
+coverage bits new to the map; ``coverage_bits``, ``one_sided``). Each
+section is also the search phase ``ingest_<section>`` on
+``search.telemetry``, timed inside it. The warm-start counts and the
+coverage map go to ``search.telemetry`` too (``knowledge_warmstart``,
+``relation_coverage``), and so do the knowledge client's round trips,
+as the reference's ingest reports them to ``obs``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import List, NamedTuple, Optional
@@ -51,6 +57,7 @@ from namazu_tpu_torch.models.failure_pool import (
     pool_load,
     trace_digest,
 )
+from namazu_tpu_torch.obs import search_phase
 from namazu_tpu_torch.ops import trace_encoding as te
 
 log = logging.getLogger("namazu_tpu_torch.ingest")
@@ -119,17 +126,24 @@ def _push_surrogate_examples(client, search, encoded) -> None:
         log.exception("could not push surrogate examples")
 
 
-class _Clock:
-    """Seconds per section, added into ``stats``."""
+class _Sections:
+    """Seconds per section, added into ``stats``: each section is the
+    search phase ``ingest_<section>`` on ``sink``, and is timed inside
+    it, so the phase's span holds the seconds counted."""
 
-    def __init__(self, stats: Optional[dict]):
+    def __init__(self, stats: Optional[dict], sink):
         self.stats = stats if stats is not None else {}
-        self.t = time.perf_counter()
+        self.sink = sink
 
-    def lap(self, section: str) -> None:
-        now = time.perf_counter()
-        self.stats[section] = self.stats.get(section, 0.0) + now - self.t
-        self.t = now
+    @contextlib.contextmanager
+    def __call__(self, section: str):
+        with search_phase(self.sink, f"ingest_{section}"):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.stats[section] = (self.stats.get(section, 0.0)
+                                       + time.perf_counter() - t0)
 
 
 def ingest_history(search, storage, p: IngestParams,
@@ -140,153 +154,167 @@ def ingest_history(search, storage, p: IngestParams,
     space, quarantined runs and runs without a result are skipped."""
     if storage is None:
         return []
-    try:
-        n = storage.nr_stored_histories()
-    except Exception:
-        log.exception("could not count stored runs")
-        return []
-    clock = _Clock(stats)
-    # the map is wired before any archive write, so fragments stay
-    # slot-aligned, and rebuilt on every ingest (fresh), so a cached
-    # search never observes the same history twice
-    gmap = None
-    if p.guidance:
-        gmap = search.enable_guidance(p.guidance_width or None,
-                                      p.guidance_window or None,
-                                      fresh=True)
-    encoded = []
-    skipped_unstamped = 0
-    for i in range(n):
+    tel = search.telemetry
+    section = _Sections(stats, tel)
+    with section("read_encode"):
+        t0 = time.perf_counter()
         try:
-            trace = storage.get_stored_history(i)
-            ok = storage.is_successful(i)
-            stamp = ((storage.get_metadata(i) or {})
-                     .get("hint_space", "content-v1"))
+            n = storage.nr_stored_histories()
         except Exception:
-            continue
-        if stamp != te.HINT_SPACE:
-            skipped_unstamped += 1
-            continue
-        if p.L > 0:
-            cap: Optional[int] = p.L
-        elif p.release_mode == "reorder":
-            cap = p.order_mode_max_l
-        else:
-            cap = None  # delay mode scores long traces blockwise
-        enc, enc_rt = te.encode_trace_views(trace, L=cap, H=p.H)
-        if enc.truncated:
-            log.warning("trace %d truncated: %d events beyond the L=%d "
-                        "cap were dropped from scoring", i, enc.truncated,
-                        cap)
-        seed = None if ok else failure_seed(trace, p.H, p.max_interval)
-        encoded.append((enc, enc_rt, ok, seed))
-    if skipped_unstamped:
-        log.warning("%d stored run(s) recorded in another hint space were "
-                    "excluded from search ingest (this build: %s)",
-                    skipped_unstamped, te.HINT_SPACE)
-    clock.lap("read_encode")
+            log.exception("could not count stored runs")
+            return []
+        read, encode = time.perf_counter() - t0, 0.0
+        # the map is wired before any archive write, so fragments stay
+        # slot-aligned, and rebuilt on every ingest (fresh), so a cached
+        # search never observes the same history twice
+        gmap = None
+        if p.guidance:
+            gmap = search.enable_guidance(p.guidance_width or None,
+                                          p.guidance_window or None,
+                                          fresh=True)
+        encoded = []
+        skipped_unstamped = 0
+        for i in range(n):
+            t0 = time.perf_counter()
+            try:
+                trace = storage.get_stored_history(i)
+                ok = storage.is_successful(i)
+                stamp = ((storage.get_metadata(i) or {})
+                         .get("hint_space", "content-v1"))
+            except Exception:
+                continue
+            finally:
+                t1 = time.perf_counter()
+                read += t1 - t0
+            if stamp != te.HINT_SPACE:
+                skipped_unstamped += 1
+                continue
+            if p.L > 0:
+                cap: Optional[int] = p.L
+            elif p.release_mode == "reorder":
+                cap = p.order_mode_max_l
+            else:
+                cap = None  # delay mode scores long traces blockwise
+            enc, enc_rt = te.encode_trace_views(trace, L=cap, H=p.H)
+            seed = None if ok else failure_seed(trace, p.H, p.max_interval)
+            encode += time.perf_counter() - t1
+            if enc.truncated:
+                log.warning("trace %d truncated: %d events beyond the L=%d "
+                            "cap were dropped from scoring", i,
+                            enc.truncated, cap)
+            encoded.append((enc, enc_rt, ok, seed))
+        section.stats["read"], section.stats["encode"] = read, encode
+        if skipped_unstamped:
+            log.warning("%d stored run(s) recorded in another hint space "
+                        "were excluded from search ingest (this build: %s)",
+                        skipped_unstamped, te.HINT_SPACE)
     # the failure pool and the knowledge service: own failures go up
     # first, then the others' signatures (never our own) come down
     pooled = []
     client = None
-    tel = search.telemetry
     if p.knowledge:
         client = shared_client(p.knowledge, tenant=p.knowledge_tenant,
                                scenario=p.knowledge_scenario, telemetry=tel)
     if p.failure_pool or client is not None:
         own = set()
         push_entries = []
-        for enc, enc_rt, ok, seed in encoded:
-            if ok:
-                continue
-            try:
-                own.add(trace_digest(enc_rt))
-                if p.failure_pool:
-                    pool_add(p.failure_pool, enc_rt, enc, seed, p.H)
-                if client is not None:
-                    push_entries.append(
-                        entry_to_jsonable(enc_rt, enc, seed, p.H))
-            except Exception:
-                log.exception("could not pool failure signature")
-        if p.failure_pool:
-            pooled = pool_load(p.failure_pool, p.H, exclude=own)
-        clock.lap("pool_io")
+        with section("pool_io"):
+            for enc, enc_rt, ok, seed in encoded:
+                if ok:
+                    continue
+                try:
+                    own.add(trace_digest(enc_rt))
+                    if p.failure_pool:
+                        pool_add(p.failure_pool, enc_rt, enc, seed, p.H)
+                    if client is not None:
+                        push_entries.append(
+                            entry_to_jsonable(enc_rt, enc, seed, p.H))
+                except Exception:
+                    log.exception("could not pool failure signature")
+            if p.failure_pool:
+                pooled = pool_load(p.failure_pool, p.H, exclude=own)
         if client is not None:
-            client.push(entries=push_entries)  # None on an outage: fine
-            have = own | {e.digest for e in pooled}
-            # the fleet's coverage bits ride the same round trip
-            space = (None if gmap is None else
-                     {"H": gmap.H, "w": gmap.width, "win": gmap.window})
-            remote = client.pull(p.H, exclude=have, coverage_space=space)
-            if remote is not None:
-                r_entries = remote[0]
-                fresh = sum(1 for e in r_entries
-                            if not search.has_failure_signature(e.digest))
-                clock.stats["warmstart_archive"] = fresh
-                tel.knowledge_warmstart("archive", fresh)
-                pooled = pooled + r_entries
-                if gmap is not None:
-                    merged = gmap.merge_bits(remote[2])
-                    clock.stats["warmstart_coverage"] = merged
-                    tel.knowledge_warmstart("coverage", merged)
-            clock.lap("knowledge")
+            with section("knowledge"):
+                client.push(entries=push_entries)  # None on an outage
+                have = own | {e.digest for e in pooled}
+                # the fleet's coverage bits ride the same round trip
+                space = (None if gmap is None else
+                         {"H": gmap.H, "w": gmap.width, "win": gmap.window})
+                remote = client.pull(p.H, exclude=have,
+                                     coverage_space=space)
+                if remote is not None:
+                    r_entries = remote[0]
+                    fresh = sum(1 for e in r_entries
+                                if not search.has_failure_signature(
+                                    e.digest))
+                    section.stats["warmstart_archive"] = fresh
+                    tel.knowledge_warmstart("archive", fresh)
+                    pooled = pooled + r_entries
+                    if gmap is not None:
+                        merged = gmap.merge_bits(remote[2])
+                        section.stats["warmstart_coverage"] = merged
+                        tel.knowledge_warmstart("coverage", merged)
         if pooled:
             log.info("folding %d pooled failure signature(s) into the "
                      "search (pool %s%s)", len(pooled),
                      p.failure_pool or "-",
                      f", knowledge {p.knowledge}" if p.knowledge else "")
-    # refit the pairs BEFORE embedding anything: a change clears the
-    # archives, and the loops below refill them in full
-    search.set_occupied_buckets(sorted(
-        {int(b) for enc, _, _, _ in encoded for b in enc.hint_ids[enc.mask]}
-        | {int(b) for e in pooled
-           for b in e.realized.hint_ids[e.realized.mask]}))
-    # most recent failures first, then the pooled ones (newest first)
-    seeds = [s for _, _, ok, s in encoded if not ok and s is not None]
-    seeds = seeds[::-1] + [e.seed for e in pooled if e.seed is not None]
-    if seeds:
-        search.seed_population(seeds[: p.max_seed_genomes])
     if gmap is not None:
         # every known run's realized order, pooled ones too and before
         # the dedupe skip below (a restored search may hold a signature
         # this fresh map has never seen)
+        with section("guidance_observe"):
+            for e in pooled:
+                gmap.observe(bucket_sequence_from_encoded(e.realized))
+            for _, enc_rt, _, _ in encoded:
+                gmap.observe(bucket_sequence_from_encoded(enc_rt))
+    with section("archive"):
+        # refit the pairs BEFORE embedding anything: a change clears the
+        # archives, and the loops below refill them in full
+        search.set_occupied_buckets(sorted(
+            {int(b) for enc, _, _, _ in encoded
+             for b in enc.hint_ids[enc.mask]}
+            | {int(b) for e in pooled
+               for b in e.realized.hint_ids[e.realized.mask]}))
+        # most recent failures first, then the pooled ones (newest first)
+        seeds = [s for _, _, ok, s in encoded if not ok and s is not None]
+        seeds = seeds[::-1] + [e.seed for e in pooled if e.seed is not None]
+        if seeds:
+            search.seed_population(seeds[: p.max_seed_genomes])
         for e in pooled:
-            gmap.observe(bucket_sequence_from_encoded(e.realized))
-        for _, enc_rt, _, _ in encoded:
-            gmap.observe(bucket_sequence_from_encoded(enc_rt))
-        clock.lap("guidance_observe")
-    for e in pooled:
-        # pooled signatures go in first, once each: the failure archive is
-        # a ring, and the storage's own failures must survive a full pool
-        if search.has_failure_signature(e.digest):
-            continue
-        search.add_executed_trace(e.realized, reproduced=True,
-                                  arrival=e.arrival)
-        search.add_failure_trace(e.realized)
-    failures, successes = [], []
-    for enc, enc_rt, ok, _ in encoded:
-        search.add_executed_trace(enc_rt, reproduced=not ok, arrival=enc)
-        if not ok:
-            search.add_failure_trace(enc_rt)
-            failures.append(enc)
-        else:
-            successes.append(enc)
-    clock.lap("archive")
+            # pooled signatures go in first, once each: the failure
+            # archive is a ring, and the storage's own failures must
+            # survive a full pool
+            if search.has_failure_signature(e.digest):
+                continue
+            search.add_executed_trace(e.realized, reproduced=True,
+                                      arrival=e.arrival)
+            search.add_failure_trace(e.realized)
+        failures, successes = [], []
+        for enc, enc_rt, ok, _ in encoded:
+            search.add_executed_trace(enc_rt, reproduced=not ok,
+                                      arrival=enc)
+            if not ok:
+                search.add_failure_trace(enc_rt)
+                failures.append(enc)
+            else:
+                successes.append(enc)
     if gmap is not None:
-        clock.stats["coverage_bits"] = gmap.covered()
-        clock.stats["one_sided"] = gmap.one_sided_count()
+        section.stats["coverage_bits"] = gmap.covered()
+        section.stats["one_sided"] = gmap.one_sided_count()
         tel.relation_coverage(p.knowledge_scenario or "local",
-                              clock.stats["coverage_bits"], gmap.width,
-                              clock.stats["one_sided"])
-        if client is not None:
-            # publish this campaign's frontier for the next cold campaign
-            client.push(coverage={"H": gmap.H, "w": gmap.width,
-                                  "win": gmap.window,
-                                  "bits": gmap.bits_list()})
-    if client is not None and encoded:
-        _push_surrogate_examples(client, search, encoded)
+                              section.stats["coverage_bits"], gmap.width,
+                              section.stats["one_sided"])
     if client is not None:
-        clock.lap("knowledge")
+        with section("knowledge"):
+            if gmap is not None:
+                # publish this campaign's frontier for the next cold
+                # campaign
+                client.push(coverage={"H": gmap.H, "w": gmap.width,
+                                      "win": gmap.window,
+                                      "bits": gmap.bits_list()})
+            if encoded:
+                _push_surrogate_examples(client, search, encoded)
     if p.reference_mode == "envelope" and successes:
         return [te.envelope_trace(successes)]
     pool = successes if successes else failures

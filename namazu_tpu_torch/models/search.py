@@ -45,6 +45,7 @@ device-trace capture.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import logging
 import os
@@ -295,6 +296,13 @@ class SearchBase:
         self._failure_digest_set: set = set()
         self.generations_run = 0
         self.last_run_seconds = 0.0  # the evolve section of run()
+        # of that section: the wall seconds the searching thread waited on
+        # the card, and its own CPU seconds outside those waits; the rest
+        # it stalled (runnable without the interpreter lock or a core, or
+        # blocked in a call that is not one of those waits)
+        self.last_wait_seconds = 0.0
+        self.last_cpu_seconds = 0.0
+        self._waited = [0.0, 0.0]  # the current run's waits: wall, CPU
         self.last_rerank_seconds = 0.0  # surrogate train + re-rank
         self._key = key_data(cfg.seed)
         # the fault half is scored only when faults can be non-zero
@@ -495,6 +503,37 @@ class SearchBase:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _start_clocks(self) -> float:
+        """Start counting a run's waits; returns the thread's CPU clock.
+        Take it after the run's wall stamp ``t0``, and stop the clocks
+        with both (``_stop_clocks``)."""
+        self._waited = [0.0, 0.0]
+        return time.thread_time()
+
+    def _stop_clocks(self, t0: float, cpu0: float) -> None:
+        """Set the run's wall, wait and CPU seconds. A thread's CPU clock
+        may move in ticks (every 10 ms on some hosts), so a run's CPU can
+        read above the wall it lies in: it is capped at the wall left
+        outside the waits."""
+        cpu = time.thread_time() - cpu0 - self._waited[1]
+        self.last_run_seconds = time.perf_counter() - t0
+        self.last_wait_seconds = self._waited[0]
+        self.last_cpu_seconds = min(
+            cpu, self.last_run_seconds - self.last_wait_seconds)
+
+    @contextlib.contextmanager
+    def _on_card(self):
+        """A block in which the searching thread waits on the card: its
+        wall seconds add to the run's wait, and its CPU seconds (a CUDA
+        sync may spin) leave the run's CPU."""
+        c0 = time.thread_time()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._waited[0] += time.perf_counter() - t0
+            self._waited[1] += time.thread_time() - c0
+
     # -- persistence -------------------------------------------------------
 
     def _state_dict(self) -> dict:
@@ -670,6 +709,7 @@ class ScheduleSearch(SearchBase):
         replaces the island state and never writes into it."""
         tel = self.telemetry
         t0 = time.perf_counter()
+        cpu0 = self._start_clocks()
         encs = encoded if isinstance(encoded, (list, tuple)) else [encoded]
         with search_phase(tel, "encode"):
             inputs = self._device_inputs(encs)
@@ -692,12 +732,13 @@ class ScheduleSearch(SearchBase):
                 else:
                     curve = self._run_stepwise(inputs, nov_scale,
                                                generations, bias)
-                self._sync()
+                with self._on_card():
+                    self._sync()
             except BaseException:
                 self._state = start
                 raise
+        self._stop_clocks(t0, cpu0)
         elapsed = time.perf_counter() - t_evolve
-        self.last_run_seconds = time.perf_counter() - t0
         self.last_fit_curve = curve
         self.generations_run += generations
         self._round_best = float(self._state.best_fitness)
@@ -767,7 +808,11 @@ class ScheduleSearch(SearchBase):
                 mutation_bias=bias, coin=self._dev_coin, mesh=self.mesh,
                 rings=self._rings)
             fits.append(fit)
-        return [float(v) for v in torch.stack(fits).tolist()] if fits else []
+        if not fits:
+            return []
+        with self._on_card():
+            curve = torch.stack(fits).tolist()
+        return [float(v) for v in curve]
 
     def _run_fused(self, inputs, nov_scale, generations: int,
                    bias: Optional[torch.Tensor] = None):
@@ -815,7 +860,8 @@ class ScheduleSearch(SearchBase):
         with search_phase(self.telemetry, "host_io"):
             host, done = staged
             if done is not None:
-                done.synchronize()
+                with self._on_card():
+                    done.synchronize()
             curve.extend(float(v) for v in host.tolist())
             if curve:
                 self.telemetry.search_progress(
@@ -1061,6 +1107,7 @@ class MCTSSearch(SearchBase):
         best schedule seen so far (monotonic across calls)."""
         encs = encoded if isinstance(encoded, (list, tuple)) else [encoded]
         t0 = time.perf_counter()
+        cpu0 = self._start_clocks()
         traces, pairs, archive, failures = self._device_inputs(encs)
         hint_order = self._hint_order(encs)
         seeds = (None if self._seed_tables is None else
@@ -1072,13 +1119,14 @@ class MCTSSearch(SearchBase):
                 self._next_search_seed(), self.mesh, traces, pairs,
                 archive, failures, hint_order, self.cfg.H, self.mcts_cfg,
                 self.cfg.weights, coin=self._dev_coin, seeds=seeds)
-            fit = float(fit)
+            with self._on_card():
+                fit = float(fit)
             if fit > self._best_fitness:
                 self._best_fitness = fit
                 self._best_delays = d.cpu().numpy()
                 self._best_faults = f.cpu().numpy()
+        self._stop_clocks(t0, cpu0)
         elapsed = time.perf_counter() - t_evolve
-        self.last_run_seconds = time.perf_counter() - t0
         sims = searches * self.mcts_cfg.simulations
         self.generations_run += sims
         self._record_progress(sims, elapsed, sims * self.mcts_cfg.rollouts,

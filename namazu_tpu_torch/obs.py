@@ -40,7 +40,11 @@ class Telemetry:
     def search_phase(self, phase: str):
         """Context manager around one phase of a search (``encode``,
         ``evolve``, ``host_io``, ``surrogate``, ``extract``; the policy
-        adds ``ingest`` and ``install``)."""
+        adds ``ingest`` and ``install``), of its ingest (each section,
+        ``ingest_read_encode``, ``ingest_pool_io``, ``ingest_knowledge``,
+        ``ingest_guidance_observe``, ``ingest_archive``) and, on the
+        sidecar's path, ``ingest`` around the whole ingest and ``save``
+        around the checkpoint's save."""
         return contextlib.nullcontext()
 
     def search_round(self, backend: str, generations: int, elapsed: float,

@@ -74,7 +74,7 @@ from namazu_tpu_torch.knowledge import (
 )
 from namazu_tpu_torch.models.ingest import IngestParams, ingest_history
 from namazu_tpu_torch.models.search import SearchBase
-from namazu_tpu_torch.obs import NULL, Telemetry
+from namazu_tpu_torch.obs import NULL, Telemetry, search_phase
 from namazu_tpu_torch.policy.tpu import (
     build_search,
     ingest_params,
@@ -106,8 +106,13 @@ class SearchService:
         #: key -> seconds of the last search request's phases: ingest
         #: and its sections (ingest_read_encode, ingest_pool_io,
         #: ingest_guidance_observe, ingest_knowledge: the knowledge round
-        #: trips, ingest_archive), run (evolve), rerank (surrogate train,
-        #: candidate guidance and re-rank), save
+        #: trips, ingest_archive), of ingest_read_encode the storage's
+        #: reads (ingest_read) and the runs' encoding (ingest_encode), run
+        #: (evolve), of run the waits on the card (evolve_wait) and the
+        #: searching thread's CPU outside them (evolve_cpu), rerank
+        #: (surrogate train, candidate guidance and re-rank), save. The
+        #: search phases ``ingest``, ``ingest_<section>`` and ``save``
+        #: span the same sections on the telemetry sink.
         self.timings: Dict[str, Dict[str, float]] = {}
         #: key -> the last ingest's counts (warmstart_archive,
         #: warmstart_coverage, coverage_bits, one_sided)
@@ -206,9 +211,10 @@ class SearchService:
                 ip.knowledge, tenant=ip.knowledge_tenant,
                 scenario=ip.knowledge_scenario, telemetry=self.telemetry))
         stats: Dict[str, float] = {}
-        t0 = time.perf_counter()
-        references = ingest_history(search, storage, ip, stats=stats)
-        t1 = time.perf_counter()
+        with search_phase(self.telemetry, "ingest"):
+            t0 = time.perf_counter()
+            references = ingest_history(search, storage, ip, stats=stats)
+            t1 = time.perf_counter()
         self.ingest_counts[key] = {k: v for k, v in stats.items()
                                    if isinstance(v, int)}
         if not references:
@@ -216,18 +222,23 @@ class SearchService:
                     "generations_run": search.generations_run}
         best = search.run(references,
                           generations=int(req.get("generations", 64)))
-        t2 = time.perf_counter()
+        save = 0.0
         if checkpoint:
-            try:
-                search.save(checkpoint)
-            except Exception:
-                log.exception("could not save checkpoint %s", checkpoint)
+            with search_phase(self.telemetry, "save"):
+                t2 = time.perf_counter()
+                try:
+                    search.save(checkpoint)
+                except Exception:
+                    log.exception("could not save checkpoint %s",
+                                  checkpoint)
+                save = time.perf_counter() - t2
         self.timings[key] = dict(
             {f"ingest_{k}": v for k, v in stats.items()
              if isinstance(v, float)},
             ingest=t1 - t0, run=search.last_run_seconds,
-            rerank=search.last_rerank_seconds,
-            save=time.perf_counter() - t2)
+            evolve_wait=search.last_wait_seconds,
+            evolve_cpu=search.last_cpu_seconds,
+            rerank=search.last_rerank_seconds, save=save)
         return {
             "ok": True,
             "fitness": float(best.fitness),

@@ -43,6 +43,7 @@ that import ``namazu_tpu``; neither imports JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -65,11 +66,22 @@ class ObsSink:
     the collector calls, which that module does not carry, to
     ``obs.federation``, and the causality stamps to ``obs.context``
     while the reference's plane is on (``obs.metrics.enabled()``), as
-    its framed server and knowledge client stamp. The ``torch_search``
-    policy shim hands in the same sink."""
+    its framed server and knowledge client stamp. The phases only the
+    port opens (``PORT_PHASES``, and the ingest's ``ingest_<section>``)
+    stay off the plane, which keeps the series the reference reports.
+    The ``torch_search`` policy shim hands in the same sink."""
+
+    #: the sidecar's phases around its ingest and its checkpoint's save
+    PORT_PHASES = ("ingest", "save")
 
     register_collector = staticmethod(federation.register_collector)
     unregister_collector = staticmethod(federation.unregister_collector)
+
+    @staticmethod
+    def search_phase(phase: str):
+        if phase in ObsSink.PORT_PHASES or phase.startswith("ingest_"):
+            return contextlib.nullcontext()
+        return obs.search_phase(phase)
 
     @staticmethod
     def wire_stamp():

@@ -9,7 +9,10 @@ exact for ints, bools, pairs, seeds, digests, labels, arrival offsets
 (the same float64 arithmetic cast once to f32) and reference traces;
 rtol 1e-3 / atol 1e-4 for archive features (f32 sums in another order)."""
 
+import contextlib
 import json
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -32,10 +35,31 @@ from namazu_tpu.utils.trace import SingleTrace
 from namazu_tpu_torch import history
 from namazu_tpu_torch.models import ingest as tingest
 from namazu_tpu_torch.models import search as tsearch
+from namazu_tpu_torch.obs import Telemetry
 from namazu_tpu_torch.ops import trace_encoding as tte
 from test_torch_search import ATOL, RTOL, H, K, jax_cfg, port_cfg
 
 T0 = 1.7e9  # wall-clock base of the recorded times
+
+
+class SpanSink(Telemetry):
+    """A telemetry sink that keeps each search phase's span, ``(phase,
+    thread ident, start, end)`` in ``time.perf_counter`` seconds, in the
+    order the phases closed."""
+
+    def __init__(self):
+        self.spans = []
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def search_phase(self, phase):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            span = (phase, threading.get_ident(), t0, time.perf_counter())
+            with self._lock:
+                self.spans.append(span)
 
 
 def make_event(rng, i):
@@ -329,6 +353,8 @@ def test_pooled_knowledge_and_guided_ingest_match_reference(tmp_path, knobs):
             ing.ingest_history(fresh(), reader(a.dir), params("A"))
             search, stats = fresh(), {}
             kw = {"stats": stats} if pkg == "port" else {}
+            if pkg == "port":
+                search.telemetry = sink = SpanSink()
             refs = ing.ingest_history(search, reader(b.dir), params("B"),
                                       **kw)
             states[pkg] = (search, refs, stats)
@@ -368,6 +394,17 @@ def test_pooled_knowledge_and_guided_ingest_match_reference(tmp_path, knobs):
     assert ("knowledge" in stats) == ("knowledge" in on)
     assert ("pool_io" in stats) == pooled
     assert ("guidance_observe" in stats) == ("guidance" in on)
+    # each timed section is a phase of the same name, and the reverse;
+    # the storage's reads and the runs' encoding lie inside read_encode
+    sections = {k for k, v in stats.items() if isinstance(v, float)}
+    assert {"read", "encode"} <= sections
+    assert {p[len("ingest_"):] for p, _, _, _ in sink.spans} == \
+        sections - {"read", "encode"}
+    assert 0.0 <= stats["read"] + stats["encode"] <= stats["read_encode"]
+    for section in sections - {"read", "encode"}:
+        spanned = sum(e - s for p, _, s, e in sink.spans
+                      if p == f"ingest_{section}")
+        assert spanned >= stats[section]
 
 
 def test_fresh_storage_evolves_against_pooled_arrivals(tmp_path):

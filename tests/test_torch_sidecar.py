@@ -16,6 +16,9 @@ import socket
 import struct
 import subprocess
 import sys
+import itertools
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -27,7 +30,7 @@ from namazu_tpu.storage import load_storage as jload
 from namazu_tpu.utils.config import Config
 from namazu_tpu_torch import wire
 from namazu_tpu_torch.sidecar import SidecarServer, request
-from test_torch_ingest import write_storage
+from test_torch_ingest import SpanSink, write_storage
 
 SEARCH_PARAMS = {
     "H": 32, "K": 32, "population": 64, "migrate_k": 2, "seed": 5,
@@ -101,6 +104,61 @@ def test_keep_alive_connection_serves_two_searches(server, history,
         assert CKPT_KEYS <= set(z.files)
         assert int(z["generations_run"]) == 8
     assert request(addr(server), {"op": "ping"})["searches"] == 1
+
+
+@pytest.mark.parametrize("backend, ticks", [("ga", False), ("mcts", False),
+                                            ("ga", True)])
+def test_a_search_names_its_ingest_and_save_and_splits_its_evolve(
+        history, tmp_path, monkeypatch, backend, ticks):
+    """One request's phases on a recording sink, all on the thread that
+    serves it: ``ingest`` with the ingest's sections inside it, then the
+    search's, then ``save``; each phase spans the seconds its timing
+    counts. The timings split the ingest's reads from its encoding and
+    the evolve's waits on the card from the searching thread's CPU,
+    each inside the section that holds it, also where the thread's CPU
+    clock reads ahead of the wall (``ticks``: a second a read, as a
+    clock that moves in coarse ticks may)."""
+    extra = ({} if backend == "ga" else dict(
+        search_backend="mcts", mcts_simulations=8, mcts_tree_depth=4,
+        mcts_levels=3, mcts_rollouts=8))
+    if ticks:
+        ahead, cpu = itertools.count(), time.thread_time
+        monkeypatch.setattr(time, "thread_time",
+                            lambda: cpu() + next(ahead))
+    sink = SpanSink()
+    srv = SidecarServer(port=0, device="cpu", telemetry=sink)
+    srv.start()
+    try:
+        resp = request(addr(srv), search_req(
+            history, str(tmp_path / "c.npz"), **extra))
+    finally:
+        srv.shutdown()
+    assert resp["ok"] is True
+    threads = {tid for _, tid, _, _ in sink.spans}
+    assert len(threads) == 1 and threading.get_ident() not in threads
+    span = {}
+    for phase, _, t0, t1 in sink.spans:
+        assert phase not in span or phase in ("host_io", "ingest_knowledge")
+        span.setdefault(phase, (t0, t1))
+    ingest, save = span["ingest"], span["save"]
+    for phase in ("ingest_read_encode", "ingest_archive"):
+        assert ingest[0] <= span[phase][0] <= span[phase][1] <= ingest[1]
+    assert span["ingest_read_encode"][1] <= span["ingest_archive"][0]
+    searched = [s for p, s in span.items()
+                if p not in ("save", "ingest") and not p.startswith("ingest_")]
+    assert (backend == "mcts") == (not searched)
+    assert all(ingest[1] <= t0 <= t1 <= save[0] for t0, t1 in searched)
+    assert save[1] >= save[0] >= ingest[1]
+    tm = srv.service.timings[history.dir]
+    for k in ("ingest_read", "ingest_encode", "evolve_wait", "evolve_cpu"):
+        assert tm[k] >= 0.0
+    assert tm["ingest_read"] + tm["ingest_encode"] <= tm["ingest_read_encode"]
+    assert tm["evolve_wait"] + tm["evolve_cpu"] <= tm["run"]
+    assert tm["evolve_cpu"] > 0.0
+    for phase, key in (("ingest", "ingest"), ("save", "save"),
+                       ("ingest_read_encode", "ingest_read_encode"),
+                       ("ingest_archive", "ingest_archive")):
+        assert span[phase][1] - span[phase][0] >= tm[key] > 0.0
 
 
 def test_unknown_op_bad_storage_and_bad_frames(server):

@@ -463,7 +463,9 @@ def test_the_sink_carries_the_reference_calls():
     parameters: ``namazu_tpu.obs``'s, the collector calls
     ``obs.federation``'s, the stamp calls ``obs.context``'s (the shim's
     sink makes those only while the plane is on, so they are wrapped;
-    ``tests/test_torch_causality.py`` holds what they do)."""
+    ``tests/test_torch_causality.py`` holds what they do). The sink's
+    ``search_phase`` is wrapped too: the next test holds what it
+    forwards."""
     from namazu_tpu import obs
 
     calls = [n for n, _ in inspect.getmembers(tobs.Telemetry,
@@ -481,7 +483,29 @@ def test_the_sink_carries_the_reference_calls():
         ref = getattr(obs if hasattr(obs, name) else federation, name)
         assert (list(inspect.signature(port).parameters)[1:]
                 == list(inspect.signature(ref).parameters)), name
+        if name == "search_phase":
+            assert (list(inspect.signature(shim.SINK.search_phase).parameters)
+                    == list(inspect.signature(ref).parameters))
+            continue
         assert getattr(shim.SINK, name) is ref
+
+
+def test_the_sink_keeps_the_port_phases_off_the_plane():
+    """The shim's sink records the reference's search phases on the
+    reference's plane, and not the phases only the port opens (the
+    sidecar's ``ingest`` and ``save``, the ingest's sections): the plane
+    keeps the series the reference's sidecar reports."""
+    reference = ("encode", "evolve", "host_io", "surrogate", "extract",
+                 "install")
+    port = ("ingest", "save", "ingest_read_encode", "ingest_pool_io",
+            "ingest_knowledge", "ingest_guidance_observe", "ingest_archive")
+    with fresh_plane():
+        for phase in reference + port:
+            with shim.SINK.search_phase(phase):
+                pass
+        got = {dict(k[1])["phase"]: v for k, v in series().items()
+               if k[0] == "nmz_search_phase_seconds"}
+    assert got == {phase: 1 for phase in reference}
 
 
 def test_chip_smoke_rehearses_the_shim_path(tmp_path):
