@@ -15,19 +15,40 @@ Layout of a storage directory::
 
 A run with a trace but no result (a crash between the two writes) is
 invisible too; the reader never writes a marker or anything else.
+
+``run_tokens`` stats every run for a reader that keeps what it read
+between two reads of the storage (``models/ingest.py::RunCache``): a
+run's token moves whenever its directory, ``result.json`` or
+``trace.json`` is replaced, rewritten or touched, and a marker added to
+or taken from the directory moves the directory's times.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 INCOMPLETE_MARKER = "INCOMPLETE"
 
 
 class StorageError(Exception):
     pass
+
+
+#: one file's ``(st_ino, st_size, st_mtime_ns, st_ctime_ns)``
+Stat = Tuple[int, int, int, int]
+#: a run's stat token: its directory's, ``result.json``'s and
+#: ``trace.json``'s stats (None for a missing one)
+RunToken = Tuple[Optional[Stat], Stat, Optional[Stat]]
+
+
+def _stat(path: str) -> Optional[Stat]:
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return (st.st_ino, st.st_size, st.st_mtime_ns, st.st_ctime_ns)
 
 
 class ActionRecord(NamedTuple):
@@ -81,6 +102,18 @@ class NaiveHistory:
                 n = i + 1
         return n
 
+    def run_tokens(self) -> List[Optional[RunToken]]:
+        """A stat token for each run below ``next_run``, None for a run
+        without a result; at most three stats a run. One past the last
+        token that is not None is ``nr_stored_histories()``."""
+        tokens: List[Optional[RunToken]] = []
+        for i in range(self._next_run):
+            run = os.path.join(self.dir, f"{i:08x}")
+            result = _stat(os.path.join(run, "result.json"))
+            tokens.append(None if result is None else (
+                _stat(run), result, _stat(os.path.join(run, "trace.json"))))
+        return tokens
+
     def _result(self, i: int) -> Dict[str, Any]:
         if self.is_quarantined(i):
             raise StorageError(f"run {i:08x} is quarantined (INCOMPLETE)")
@@ -90,13 +123,25 @@ class NaiveHistory:
         with open(path) as f:
             return json.load(f)
 
-    def get_stored_history(self, i: int) -> List[ActionRecord]:
-        self._result(i)  # quarantined or result-less runs are invisible
+    def _trace(self, i: int) -> List[ActionRecord]:
         path = self._path(i, "trace.json")
         if not os.path.exists(path):
             raise StorageError(f"run {i:08x} has no trace")
         with open(path) as f:
             return [ActionRecord.from_jsonable(d) for d in json.load(f)]
+
+    def get_stored_history(self, i: int) -> List[ActionRecord]:
+        self._result(i)  # quarantined or result-less runs are invisible
+        return self._trace(i)
+
+    def read_run(self, i: int
+                 ) -> Tuple[List[ActionRecord], bool, Dict[str, Any]]:
+        """``(get_stored_history(i), is_successful(i), get_metadata(i))``
+        from one parse of ``result.json``; raises where they raise."""
+        result = self._result(i)
+        trace = self._trace(i)
+        return (trace, bool(result["successful"]),
+                dict(result.get("metadata") or {}))
 
     def is_successful(self, i: int) -> bool:
         return bool(self._result(i)["successful"])

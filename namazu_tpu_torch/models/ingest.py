@@ -21,13 +21,22 @@ Three knobs fold in memory beyond the storage, as in the reference:
 * ``guidance``: the search's relation-coverage map is rebuilt from every
   known run's realized order (pooled ones included) on each ingest.
 
+A ``RunCache`` handed in keeps each run's reading and encoding between
+ingests of one campaign: where the storage is the port's
+``NaiveHistory``, whose ``run_tokens`` say which runs' files moved, an
+ingest reads and encodes only the runs that are new or changed, and
+takes every other run from the cache; everything after the read sees
+the same runs in the same order. Other storages are read in full.
+
 ``stats``, when given, receives the seconds of the ingest's sections
 (``read_encode``, ``pool_io``, ``knowledge``: the knowledge round
 trips, ``guidance_observe``, ``archive``: the pairs' refit, the seed
 genomes and every run's archive rows), of the two costs inside
-``read_encode`` (``read``: the storage's scan and every run's
-``trace.json`` and ``result.json``; ``encode``: every run's two views
-and failure seed) and its counts (``warmstart_archive``: pooled
+``read_encode`` (``read``: the storage's scan, its stat tokens and the
+``trace.json`` and ``result.json`` of every run read from its files;
+``encode``: those runs' two views and failure seed) and its counts
+(``runs_read``: runs read from their files; ``runs_cached``: runs taken
+from the cache; ``warmstart_archive``: pooled
 knowledge signatures new to the search; ``warmstart_coverage``: pooled
 coverage bits new to the map; ``coverage_bits``, ``one_sided``). Each
 section is also the search phase ``ingest_<section>`` on
@@ -42,11 +51,12 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 from namazu_tpu_torch.guidance import bucket_sequence_from_encoded
+from namazu_tpu_torch.history import NaiveHistory
 from namazu_tpu_torch.knowledge.client import (
     pairs_fingerprint,
     shared_client,
@@ -64,6 +74,13 @@ log = logging.getLogger("namazu_tpu_torch.ingest")
 
 #: newest runs whose labeled features go to the shared surrogate per ingest
 MAX_EXAMPLE_PUSH = 64
+#: a run whose files changed less than this long before the wall clock
+#: at the start of the read is read again on the next ingest, and cached
+#: only once it is older: a filesystem's timestamps may be coarser than
+#: one write (git's "racily clean" rule)
+RACY_NS = 1_000_000_000
+#: the wall clock of that rule, in nanoseconds
+wall_ns = time.time_ns
 
 
 class IngestParams(NamedTuple):
@@ -103,6 +120,100 @@ def failure_seed(trace, H: int, max_interval: float):
         seed[b] = min(max(rel - arr, 0.0), max_interval)
         got = True
     return seed if got else None
+
+
+def _encode_cap(p: IngestParams) -> Optional[int]:
+    if p.L > 0:
+        return p.L
+    if p.release_mode == "reorder":
+        return p.order_mode_max_l
+    return None  # delay mode scores long traces blockwise
+
+
+class _Run(NamedTuple):
+    """One run as the ingest read it: its hint-space stamp, verdict, and,
+    in this build's hint space, its two views and failure seed."""
+
+    stamp: str
+    ok: bool
+    enc: Optional[te.EncodedTrace] = None
+    enc_rt: Optional[te.EncodedTrace] = None
+    seed: Optional[np.ndarray] = None
+
+
+def _read(read, i: int, lap: Dict[str, float]):
+    """``(trace, ok, stamp)`` of run ``i`` from ``read(i)``, which gives
+    its trace, verdict and metadata and raises for a run that cannot be
+    read; the seconds add into ``lap["read"]``."""
+    t0 = time.perf_counter()
+    try:
+        trace, ok, meta = read(i)
+        return trace, ok, (meta or {}).get("hint_space", "content-v1")
+    finally:
+        lap["read"] += time.perf_counter() - t0
+
+
+def _encode(trace, ok: bool, stamp: str, p: IngestParams,
+            cap: Optional[int], lap: Dict[str, float]) -> _Run:
+    """A read run's ``_Run``, encoded in this build's hint space only;
+    the seconds add into ``lap["encode"]``."""
+    if stamp != te.HINT_SPACE:
+        return _Run(stamp, ok)
+    t0 = time.perf_counter()
+    enc, enc_rt = te.encode_trace_views(trace, L=cap, H=p.H)
+    seed = None if ok else failure_seed(trace, p.H, p.max_interval)
+    lap["encode"] += time.perf_counter() - t0
+    return _Run(stamp, ok, enc, enc_rt, seed)
+
+
+class RunCache:
+    """One campaign's stored runs as ingests read and encoded them, kept
+    between ingests by the caller (the sidecar keeps one a key, used
+    under the key's lock). A run is taken from the cache while its stat
+    token is the one it was read under; it is cached only when no time
+    in that token lies within ``RACY_NS`` of the wall clock at the
+    read's start, so a change the token cannot see (a rewrite inside one
+    timestamp tick) is read the next time. Runs that raise are never
+    cached. The cache holds only the runs of the storage's last scan, and
+    starts empty when the storage's path or an input of the encoding
+    (its cap, ``H``, ``max_interval``) changes."""
+
+    def __init__(self):
+        self._inputs: Optional[tuple] = None
+        self._runs: Dict[int, Tuple[tuple, _Run]] = {}
+
+    def read(self, storage: NaiveHistory, tokens, p: IngestParams,
+             cap: Optional[int], now_ns: int, lap: Dict[str, float],
+             counts: Dict[str, int]) -> List[Tuple[int, _Run]]:
+        """The readable runs of ``storage`` under ``tokens``
+        (``run_tokens()`` taken at ``now_ns``) and their indices, in
+        order: from the cache where a run's token is unchanged, else read
+        and encoded."""
+        inputs = (storage.dir, cap, p.H, p.max_interval)
+        if inputs != self._inputs:
+            self._inputs, self._runs = inputs, {}
+        old, self._runs = self._runs, {}
+        runs = []
+        for i, token in enumerate(tokens):
+            if token is None:  # no result: invisible
+                continue
+            hit = old.get(i)
+            if hit is not None and hit[0] == token:
+                self._runs[i] = hit
+                runs.append((i, hit[1]))
+                counts["runs_cached"] += 1
+                continue
+            try:
+                read = _read(storage.read_run, i, lap)
+            except Exception:
+                continue
+            counts["runs_read"] += 1
+            run = _encode(*read, p, cap, lap)
+            if max(t for st in token if st is not None
+                   for t in st[2:]) < now_ns - RACY_NS:
+                self._runs[i] = (token, run)
+            runs.append((i, run))
+        return runs
 
 
 def _push_surrogate_examples(client, search, encoded) -> None:
@@ -147,23 +258,34 @@ class _Sections:
 
 
 def ingest_history(search, storage, p: IngestParams,
-                   stats: Optional[dict] = None) -> List:
+                   stats: Optional[dict] = None,
+                   cache: Optional[RunCache] = None) -> List:
     """Feed the stored runs (and, with the knobs, pooled knowledge) into
     ``search``'s archives and population; return the reference traces to
     evolve against ([] without history). Runs recorded in another hint
-    space, quarantined runs and runs without a result are skipped."""
+    space, quarantined runs and runs without a result are skipped.
+    ``cache`` keeps the runs' readings between ingests of a
+    ``NaiveHistory``; the result is the same with it or without."""
     if storage is None:
         return []
+    if not isinstance(storage, NaiveHistory):
+        cache = None  # no stat tokens: every run is read
     tel = search.telemetry
     section = _Sections(stats, tel)
     with section("read_encode"):
+        lap = {"read": 0.0, "encode": 0.0}
+        counts = {"runs_read": 0, "runs_cached": 0}
         t0 = time.perf_counter()
         try:
-            n = storage.nr_stored_histories()
+            if cache is not None:
+                now_ns = wall_ns()
+                tokens = storage.run_tokens()
+            else:
+                n = storage.nr_stored_histories()
         except Exception:
             log.exception("could not count stored runs")
             return []
-        read, encode = time.perf_counter() - t0, 0.0
+        lap["read"] += time.perf_counter() - t0
         # the map is wired before any archive write, so fragments stay
         # slot-aligned, and rebuilt on every ingest (fresh), so a cached
         # search never observes the same history twice
@@ -172,38 +294,35 @@ def ingest_history(search, storage, p: IngestParams,
             gmap = search.enable_guidance(p.guidance_width or None,
                                           p.guidance_window or None,
                                           fresh=True)
+        cap = _encode_cap(p)
+        if cache is not None:
+            runs = cache.read(storage, tokens, p, cap, now_ns, lap, counts)
+        else:
+            def read(i):
+                return (storage.get_stored_history(i),
+                        storage.is_successful(i), storage.get_metadata(i))
+
+            runs = []
+            for i in range(n):
+                try:
+                    got = _read(read, i, lap)
+                except Exception:
+                    continue
+                runs.append((i, _encode(*got, p, cap, lap)))
+            counts["runs_read"] = len(runs)
         encoded = []
         skipped_unstamped = 0
-        for i in range(n):
-            t0 = time.perf_counter()
-            try:
-                trace = storage.get_stored_history(i)
-                ok = storage.is_successful(i)
-                stamp = ((storage.get_metadata(i) or {})
-                         .get("hint_space", "content-v1"))
-            except Exception:
-                continue
-            finally:
-                t1 = time.perf_counter()
-                read += t1 - t0
-            if stamp != te.HINT_SPACE:
+        for i, run in runs:
+            if run.stamp != te.HINT_SPACE:
                 skipped_unstamped += 1
                 continue
-            if p.L > 0:
-                cap: Optional[int] = p.L
-            elif p.release_mode == "reorder":
-                cap = p.order_mode_max_l
-            else:
-                cap = None  # delay mode scores long traces blockwise
-            enc, enc_rt = te.encode_trace_views(trace, L=cap, H=p.H)
-            seed = None if ok else failure_seed(trace, p.H, p.max_interval)
-            encode += time.perf_counter() - t1
-            if enc.truncated:
+            if run.enc.truncated:
                 log.warning("trace %d truncated: %d events beyond the L=%d "
                             "cap were dropped from scoring", i,
-                            enc.truncated, cap)
-            encoded.append((enc, enc_rt, ok, seed))
-        section.stats["read"], section.stats["encode"] = read, encode
+                            run.enc.truncated, cap)
+            encoded.append((run.enc, run.enc_rt, run.ok, run.seed))
+        section.stats.update(lap)
+        section.stats.update(counts)
         if skipped_unstamped:
             log.warning("%d stored run(s) recorded in another hint space "
                         "were excluded from search ingest (this build: %s)",

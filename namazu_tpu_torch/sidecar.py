@@ -10,7 +10,9 @@ evolves on the card (``models/search.py``: the GA, with the fault half
 and order mode, or the MCTS backend, built by ``policy/tpu.py`` as the
 in-process ``torch_search`` policy builds it), saves the checkpoint in the
 reference's keys and returns the table the policy installs. One search
-is kept per experiment key, so a campaign's later requests are warm.
+is kept per experiment key, so a campaign's later requests are warm, and
+so is one run cache (``models/ingest.py::RunCache``): a later request
+reads and encodes only the runs stored or changed since the last.
 
 Ops, with the reference's response shapes:
 
@@ -72,7 +74,11 @@ from namazu_tpu_torch.knowledge import (
     KnowledgeService,
     shared_client,
 )
-from namazu_tpu_torch.models.ingest import IngestParams, ingest_history
+from namazu_tpu_torch.models.ingest import (
+    IngestParams,
+    RunCache,
+    ingest_history,
+)
 from namazu_tpu_torch.models.search import SearchBase
 from namazu_tpu_torch.obs import NULL, Telemetry, search_phase
 from namazu_tpu_torch.policy.tpu import (
@@ -114,9 +120,14 @@ class SearchService:
         #: search phases ``ingest``, ``ingest_<section>`` and ``save``
         #: span the same sections on the telemetry sink.
         self.timings: Dict[str, Dict[str, float]] = {}
-        #: key -> the last ingest's counts (warmstart_archive,
-        #: warmstart_coverage, coverage_bits, one_sided)
+        #: key -> the last ingest's counts (runs_read: runs read from
+        #: their files, runs_cached: runs taken from the key's run cache,
+        #: warmstart_archive, warmstart_coverage, coverage_bits,
+        #: one_sided)
         self.ingest_counts: Dict[str, Dict[str, int]] = {}
+        # key -> its storage's runs as the last ingest read them, used
+        # under the key's lock
+        self._run_caches: Dict[str, RunCache] = {}
 
     def handle(self, req: dict) -> dict:
         op = req.get("op")
@@ -213,7 +224,9 @@ class SearchService:
         stats: Dict[str, float] = {}
         with search_phase(self.telemetry, "ingest"):
             t0 = time.perf_counter()
-            references = ingest_history(search, storage, ip, stats=stats)
+            references = ingest_history(
+                search, storage, ip, stats=stats,
+                cache=self._run_caches.setdefault(key, RunCache()))
             t1 = time.perf_counter()
         self.ingest_counts[key] = {k: v for k, v in stats.items()
                                    if isinstance(v, int)}

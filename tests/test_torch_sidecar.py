@@ -239,9 +239,10 @@ def test_policy_knobs_are_served(history, tmp_path, where, knob):
             stats = request(addr(srv), {"op": "stats"})
             assert stats["pool_size"] == 2 and "t" in stats["tenants"]
             # nothing pooled yet to warm-start from: its own failures
-            # were pushed first and are excluded from its pull
+            # were pushed first and are excluded from its pull; a first
+            # ingest reads every run with a result from its files
             assert srv.service.ingest_counts[history.dir] == {
-                "warmstart_archive": 0}
+                "warmstart_archive": 0, "runs_read": 7, "runs_cached": 0}
         assert "ingest_read_encode" in srv.service.timings[history.dir]
         policy_knob = {knob: value if knob != "knowledge" else addr(srv)}
         run_policy(srv, history, **policy_knob)
