@@ -4,7 +4,9 @@
 Owns the precedence pairs and the novelty/failure archives (host ring
 buffers with device copies written in place), keeps the reference traces
 on the device keyed by content, runs generations over a mesh of islands
-(``parallel/mesh.py``; one island on one card by default), and extracts
+(``parallel/mesh.py``; one island on one card by default; on a CUDA
+device with the mesh in one shard, each chunk of the fused loop replays
+as a captured CUDA graph, ``parallel/graphs.py``), and extracts
 the delay table for the control plane to replay: the best seen,
 or, with ``surrogate_topk > 0`` once the surrogate has enough labeled
 runs of both outcomes, the surrogate's pick among the evolved
@@ -46,6 +48,7 @@ device-trace capture.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import logging
 import os
@@ -77,6 +80,12 @@ from namazu_tpu_torch.ops.schedule import (
     trace_features,
 )
 from namazu_tpu_torch.parallel.distributed import hier_rings
+from namazu_tpu_torch.parallel.graphs import (
+    ChunkGraphs,
+    eligible,
+    start_profiler,
+    stop_profiler,
+)
 from namazu_tpu_torch.parallel.islands import (
     fused_step,
     generation_seed,
@@ -302,6 +311,8 @@ class SearchBase:
         # blocked in a call that is not one of those waits)
         self.last_wait_seconds = 0.0
         self.last_cpu_seconds = 0.0
+        # of that section: the seconds spent capturing CUDA graphs
+        self.last_capture_seconds = 0.0
         self._waited = [0.0, 0.0]  # the current run's waits: wall, CPU
         self.last_rerank_seconds = 0.0  # surrogate train + re-rank
         self._key = key_data(cfg.seed)
@@ -500,8 +511,11 @@ class SearchBase:
                 self._dev_pairs, self._dev_archive, self._dev_failures)
 
     def _sync(self) -> None:
+        """Wait for the work queued on the device's current stream, where
+        a run queues all of its own (a device-wide sync would also break
+        a CUDA graph capture under way on another thread)."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _start_clocks(self) -> float:
         """Start counting a run's waits; returns the thread's CPU clock.
@@ -617,14 +631,30 @@ class SearchBase:
         self._upload_archives()
 
 
+def _graph_count(name: str, doc: str) -> property:
+    return property(lambda self: getattr(self._graphs, name, 0), doc=doc)
+
+
 class ScheduleSearch(SearchBase):
     """The GA backend: ``cfg.population`` genomes (rounded down to a
     multiple of the islands) over the islands of ``mesh``, or of
     ``make_mesh(n_devices)`` on ``device``; one island on one card by
     default. A mesh with an ``h`` axis migrates over :func:`hier_rings`,
-    else over one ring on ``i``."""
+    else over one ring on ``i``. On a CUDA device with the mesh in one
+    shard, the fused loop replays its chunks as captured CUDA graphs
+    (``parallel/graphs.py``); the ``graph_*`` counts are the search's
+    chunks of those since it was built (0 elsewhere)."""
 
     BACKEND = "ga"
+
+    graph_captures = _graph_count(
+        "captures", "chunks captured as CUDA graphs (and then replayed)")
+    graph_replays = _graph_count(
+        "replays", "chunks replayed from a graph captured before")
+    graph_fallbacks = _graph_count(
+        "fallbacks", "chunks run eagerly on a device where graphs replay")
+    graph_evictions = _graph_count(
+        "evictions", "graphs of this search dropped for memory")
 
     #: labeled runs needed in EACH outcome class before the surrogate may
     #: override the fitness argmax
@@ -651,6 +681,7 @@ class ScheduleSearch(SearchBase):
         self._round_best = float("-inf")
         self._state = init_island_state(cfg.seed + 1, self.population,
                                         cfg.H, cfg.ga, mesh=self.mesh)
+        self._graphs = ChunkGraphs(self.mesh) if eligible(self.mesh) else None
 
     def _reset_best(self) -> None:
         self._state = self._state._replace(best_fitness=torch.full(
@@ -718,6 +749,7 @@ class ScheduleSearch(SearchBase):
         bias = (None if self.guidance is None else torch.from_numpy(
             self.guidance.mutation_bias()).to(self.device))
         start, host_io = self._state, None
+        self.last_capture_seconds = 0.0
         t_evolve = time.perf_counter()
         with search_phase(tel, "evolve"):
             try:
@@ -773,7 +805,7 @@ class ScheduleSearch(SearchBase):
         try:
             os.makedirs(out, exist_ok=True)
             prof = torch.profiler.profile(activities=acts)
-            prof.start()
+            start_profiler(prof, self.device)
         except Exception as e:
             log.warning("device-trace capture unavailable (%s); the search "
                         "runs untraced", e)
@@ -788,7 +820,7 @@ class ScheduleSearch(SearchBase):
         section's outcome."""
         try:
             self._sync()
-            prof.stop()
+            stop_profiler(prof, self.device)
             prof.export_chrome_trace(os.path.join(
                 out, f"evolve_{os.getpid()}_{time.time_ns()}.json"))
         except Exception:
@@ -817,29 +849,44 @@ class ScheduleSearch(SearchBase):
     def _run_fused(self, inputs, nov_scale, generations: int,
                    bias: Optional[torch.Tensor] = None):
         """Generations in chunks of ``fused_chunk``, each one call with no
-        host sync inside. A chunk's best-fitness history is copied to the
-        host asynchronously and read only after the next chunk has been
-        queued, so the host never waits on the chunk still running.
-        Returns the per-generation curve and the seconds spent reading
-        it (the host-I/O lane)."""
+        host sync inside, or, where the search has graphs, one replay of
+        the chunk's captured graph (captured first where needed); a
+        replayed chunk's state lives in the graph's outputs, and the
+        run's last one is copied out at its end. A chunk's best-fitness
+        history is copied to the host asynchronously and read only after
+        the next chunk has been queued, so the host never waits on the
+        chunk still running. Returns the per-generation curve and the
+        seconds spent reading it (the host-I/O lane)."""
         traces, pairs, archive, failures = inputs
+        graphs = self._graphs
+        step = (graphs.step if graphs is not None
+                else functools.partial(fused_step, mesh=self.mesh))
         curve: List[float] = []
         host_io = 0.0
         pending = None
         done = 0
-        while done < generations:
-            g = min(self.cfg.fused_chunk, generations - done)
-            self._state, fit_hist = fused_step(
-                self._state, g, self._seed, traces, pairs, archive,
-                failures, self.cfg.ga, self.cfg.weights,
-                novelty_scale=nov_scale, mutation_bias=bias,
-                coin=self._dev_coin, mesh=self.mesh, rings=self._rings)
-            done += g
+        if graphs is not None:
+            graphs.begin()
+        try:
+            while done < generations:
+                g = min(self.cfg.fused_chunk, generations - done)
+                self._state, fit_hist = step(
+                    self._state, g, self._seed, traces, pairs, archive,
+                    failures, self.cfg.ga, self.cfg.weights,
+                    novelty_scale=nov_scale, mutation_bias=bias,
+                    coin=self._dev_coin, rings=self._rings)
+                done += g
+                if pending is not None:
+                    host_io += self._drain(pending, curve)
+                pending = self._stage(fit_hist)
             if pending is not None:
                 host_io += self._drain(pending, curve)
-            pending = self._stage(fit_hist)
-        if pending is not None:
-            host_io += self._drain(pending, curve)
+            if graphs is not None:
+                self._state = graphs.own(self._state)
+        finally:
+            if graphs is not None:
+                graphs.end()
+                self.last_capture_seconds = graphs.capture_seconds
         return curve, host_io
 
     def _stage(self, fit_hist: torch.Tensor):

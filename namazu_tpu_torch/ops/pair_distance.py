@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -49,6 +50,8 @@ MAX_SPLIT = 8  # ranks of a split: the portable cluster size
 LAUNCHES = 0
 #: kernel launches made by :func:`min_sq_distance` on CUDA tensors
 SINGLE_LAUNCHES = 0
+# the calling thread's share of both counts, ``n = [pair, single]``
+_by_thread = threading.local()
 
 Occupancy = Optional[Union[int, torch.Tensor]]
 
@@ -258,6 +261,25 @@ def _occupancy(n: Occupancy, cap: int, device
     return n, 0
 
 
+def thread_launches() -> Tuple[int, int]:
+    """``(pair, single)``: the launches the calling thread has counted in
+    :data:`LAUNCHES` and :data:`SINGLE_LAUNCHES`."""
+    return tuple(getattr(_by_thread, "n", (0, 0)))
+
+
+def _count(which: int) -> None:
+    """Count one launch of B1 (``which`` 0) or B2 (1)."""
+    global LAUNCHES, SINGLE_LAUNCHES
+    n = getattr(_by_thread, "n", None)
+    if n is None:
+        n = _by_thread.n = [0, 0]
+    n[which] += 1
+    if which == 0:
+        LAUNCHES += 1
+    else:
+        SINGLE_LAUNCHES += 1
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -304,7 +326,6 @@ def _launch(feats, archive, failures, archive_n, failure_n,
             plan: Optional[GridPlan] = None):
     """B1 on the card: one launch of the kernel under ``plan`` (default:
     :func:`grid_plan`'s)."""
-    global LAUNCHES
     _check_all("min_sq_distance_pair", feats, archive, failures)
     (N, K), A, F = feats.shape, archive.shape[0], failures.shape[0]
     dev = feats.device
@@ -323,12 +344,11 @@ def _launch(feats, archive, failures, archive_n, failure_n,
                   bug.data_ptr(), N, A, F, K, plan.consumers, plan.split,
                   stream)
     _raise_if_failed(rc, "min_sq_pair")
-    LAUNCHES += 1
+    _count(0)
     return nov, bug
 
 
 def _launch_single(feats, archive, valid_n):
-    global SINGLE_LAUNCHES
     _check_all("min_sq_distance", feats, archive)
     (N, K), A = feats.shape, archive.shape[0]
     dev = feats.device
@@ -344,7 +364,7 @@ def _launch_single(feats, archive, valid_n):
                     vn_value, out.data_ptr(), N, A, K, plan.consumers,
                     plan.split, stream)
     _raise_if_failed(rc, "min_sq")
-    SINGLE_LAUNCHES += 1
+    _count(1)
     return out
 
 

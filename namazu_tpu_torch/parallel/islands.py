@@ -102,6 +102,18 @@ def generator_for(seed: int, gen: int, device: DeviceLike = "cuda",
     return g
 
 
+def chunk_seeds(seed: int, gen: int, generations: int,
+                mesh: IslandMesh) -> List[List[int]]:
+    """The seeds :func:`generator_for` gives generations ``gen ..
+    gen + generations - 1`` of this process's islands, ``[generation]
+    [island]`` in island order: what a captured chunk's own generators
+    are set to before each replay."""
+    coords = [mesh.coords(i) for sh in mesh.shards
+              for i in range(sh.start, sh.start + sh.islands)]
+    return [[fold_coords(generation_seed(seed, gen + j), c) for c in coords]
+            for j in range(generations)]
+
+
 def one_island(device: DeviceLike) -> IslandMesh:
     return IslandMesh(("i",), (1,), [device])
 
@@ -290,7 +302,7 @@ def replicate(mesh: IslandMesh, *tensors) -> dict:
 
 def _step(state: IslandState, seed: int, inputs: dict, cfg: GAConfig,
           weights: ScoreWeights, novelty_scale, mesh: IslandMesh, rings,
-          draws) -> Tuple[IslandState, torch.Tensor]:
+          draws, gens=None) -> Tuple[IslandState, torch.Tensor]:
     parts = _parts(state.pop)
     H = parts[0].delays.shape[1]
     Pi = parts[0].delays.shape[0] // mesh.shards[0].islands
@@ -304,16 +316,24 @@ def _step(state: IslandState, seed: int, inputs: dict, cfg: GAConfig,
                 p.delays, traces, pairs, archive, failures, weights,
                 faults=None if coin is None else p.faults, coin=coin,
                 novelty_scale=novelty_scale)
-        best_i = fitness.argmax()  # the first island, then the first row
-        cands.append((fitness[best_i], p.delays[best_i], p.faults[best_i]))
+        # the first island, then the first row; gathered on the device (a
+        # 0-dim index tensor would be read back to the host)
+        best_i = fitness.argmax().reshape(1)
+        cands.append(tuple(x.index_select(0, best_i)[0]
+                           for x in (fitness, p.delays, p.faults)))
         I = sh.islands
         with trace_range("nmz_mutate"):
-            gens = None if draws is not None else [
-                generator_for(seed, state.gen, sh.device, mesh.coords(g))
-                for g in range(sh.start, sh.start + I)]
+            if draws is not None:
+                shard_gens = None
+            elif gens is not None:
+                shard_gens = gens[k]
+            else:
+                shard_gens = [
+                    generator_for(seed, state.gen, sh.device, mesh.coords(g))
+                    for g in range(sh.start, sh.start + I)]
             new_parts.append(ga_generation(
-                gens, Population(p.delays.view(I, Pi, H),
-                                 p.faults.view(I, Pi, H)),
+                shard_gens, Population(p.delays.view(I, Pi, H),
+                                       p.faults.view(I, Pi, H)),
                 fitness.view(I, Pi), cfg, delay_bias=bias,
                 draws=None if draws is None else draws[k]))
     with trace_range("nmz_migrate"):
@@ -371,12 +391,16 @@ def fused_step(state: IslandState, generations: int, seed: int,
                mutation_bias: Optional[torch.Tensor] = None,
                coin: Optional[torch.Tensor] = None,
                mesh: Optional[IslandMesh] = None,
-               rings: Sequence[Tuple] = ()
-               ) -> Tuple[IslandState, torch.Tensor]:
+               rings: Sequence[Tuple] = (),
+               gens=None) -> Tuple[IslandState, torch.Tensor]:
     """``generations`` island steps in one call, with no host sync inside
     (the inputs are copied to the shards' devices once). Returns the
     state and ``fit_hist f32[generations]``, the global best fitness of
-    each generation, left on the device for the caller to drain."""
+    each generation, left on the device for the caller to drain.
+    ``gens[j][k]``: the generators of shard ``k``'s islands in generation
+    ``j`` of the call, in place of fresh ones seeded by
+    :func:`generator_for` (a captured chunk's own, set to
+    :func:`chunk_seeds` before each replay)."""
     if generations < 1:
         raise ValueError(f"generations must be >= 1, got {generations}")
     traces = _prepare(traces, coin, cfg)
@@ -384,8 +408,9 @@ def fused_step(state: IslandState, generations: int, seed: int,
     inputs = replicate(mesh, traces, pairs, archive, failures, coin,
                        mutation_bias)
     hist = []
-    for _ in range(generations):
+    for j in range(generations):
         state, fit = _step(state, seed, inputs, cfg, weights, novelty_scale,
-                           mesh, rings, None)
+                           mesh, rings, None,
+                           None if gens is None else gens[j])
         hist.append(fit)
     return state, torch.stack(hist)

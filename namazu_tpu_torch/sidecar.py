@@ -114,8 +114,9 @@ class SearchService:
         #: ingest_guidance_observe, ingest_knowledge: the knowledge round
         #: trips, ingest_archive), of ingest_read_encode the storage's
         #: reads (ingest_read) and the runs' encoding (ingest_encode), run
-        #: (evolve), of run the waits on the card (evolve_wait) and the
-        #: searching thread's CPU outside them (evolve_cpu), rerank
+        #: (evolve), of run the waits on the card (evolve_wait), the
+        #: searching thread's CPU outside them (evolve_cpu) and the
+        #: seconds capturing CUDA graphs (evolve_capture), rerank
         #: (surrogate train, candidate guidance and re-rank), save. The
         #: search phases ``ingest``, ``ingest_<section>`` and ``save``
         #: span the same sections on the telemetry sink.
@@ -251,6 +252,7 @@ class SearchService:
             ingest=t1 - t0, run=search.last_run_seconds,
             evolve_wait=search.last_wait_seconds,
             evolve_cpu=search.last_cpu_seconds,
+            evolve_capture=search.last_capture_seconds,
             rerank=search.last_rerank_seconds, save=save)
         return {
             "ok": True,

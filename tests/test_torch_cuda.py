@@ -40,6 +40,7 @@ from namazu_tpu_torch.models.search import ScheduleSearch, SearchConfig
 from namazu_tpu_torch.ops import pair_distance as pd
 from namazu_tpu_torch.ops import schedule as sched
 from namazu_tpu_torch.ops import trace_encoding as te
+from namazu_tpu_torch.parallel import graphs as tgraphs
 
 pytestmark = pytest.mark.cuda
 
@@ -271,6 +272,11 @@ def test_small_search_launches_once_per_generation(card):
     best = s.run([enc(300), enc(1200)], generations=10)
     assert pd.LAUNCHES - before == 10
     assert np.isfinite(best.fitness)
+    # again: the chunks of 4 now replay their captured graph, whose
+    # replays count the B1 launch of each generation
+    replays = s.graph_replays
+    s.run([enc(300), enc(1200)], generations=10)
+    assert pd.LAUNCHES - before == 20 and s.graph_replays >= replays + 2
 
 
 def test_small_search_with_surrogate_launches_once_more(card):
@@ -292,6 +298,330 @@ def test_small_search_with_surrogate_launches_once_more(card):
     best = s.run([enc(300), enc(1200)], generations=10)
     assert pd.LAUNCHES - before == 11
     assert s._surrogate is not None and np.isfinite(best.fitness)
+
+
+GRAPH_MODES = ("delay", "order", "faults", "islands")
+
+
+def graph_search(card, mode, fused=True, seed=0, **over):
+    """A small search of each kind whose chunks replay as CUDA graphs
+    (delay mode, order mode, a fault half, 8 islands on the card) and its
+    reference traces; the same ``seed`` builds the same search, ``over``
+    sets other fields of its ``SearchConfig``."""
+    from namazu_tpu_torch.models.ga import GAConfig
+    from namazu_tpu_torch.models.search import make_score_weights
+    from namazu_tpu_torch.parallel.mesh import make_island_mesh
+
+    rng = np.random.RandomState(seed)
+
+    def enc(n):
+        return te.encode_event_stream(
+            [f"h{rng.randint(40)}" for _ in range(n)],
+            arrivals=np.sort(rng.rand(n) * 0.2).tolist(), H=64)
+
+    cfg = SearchConfig(
+        H=64, K=64, population=512 if mode == "islands" else 256,
+        archive_size=32, failure_size=8, fused=fused, fused_chunk=16,
+        seed=seed, ga=GAConfig(max_fault=0.1 if mode == "faults" else 0.0),
+        weights=make_score_weights("reorder" if mode == "order"
+                                   else "delay"), **over)
+    s = ScheduleSearch(cfg, device=card, mesh=(
+        make_island_mesh(8, device=card) if mode == "islands" else None))
+    for i in range(5):
+        s.add_executed_trace(enc(200), reproduced=i == 2)
+    s.add_failure_trace(enc(200))
+    return s, [enc(300), enc(1200 if mode == "delay" else 400)]
+
+
+def assert_same_search(a, b):
+    for x, y in zip(a._state, b._state):
+        if torch.is_tensor(x):
+            assert torch.equal(x, y)
+        elif isinstance(x, int):
+            assert x == y
+        else:
+            assert all(torch.equal(u, v) for u, v in zip(x, y))
+    assert a.last_fit_curve == b.last_fit_curve
+    assert a.generations_run == b.generations_run
+
+
+@pytest.mark.parametrize("mode", GRAPH_MODES)
+def test_replayed_chunks_equal_the_stepwise_search(card, mode):
+    """Runs of 40 generations (chunks of 16, 16 and 8: two graphs), three
+    times: the chunks run eagerly (a key the card has not run), are
+    captured, then replay, and the populations, best-so-far and fitness
+    curves equal the stepwise search's bit for bit throughout, with one
+    B1 launch counted a generation."""
+    graphed, refs = graph_search(card, mode)
+    stepwise, _ = graph_search(card, mode, fused=False)
+    before = pd.LAUNCHES
+    for _ in range(3):
+        a = graphed.run(refs, generations=40)
+        launched = pd.LAUNCHES
+        b = stepwise.run(refs, generations=40)
+        assert a.fitness == b.fitness and np.array_equal(a.delays, b.delays)
+        assert_same_search(graphed, stepwise)
+        assert len(graphed.last_fit_curve) == 40
+    assert launched - before == 40 + 40 + 40 + 40 + 40  # the last run's own
+    assert graphed.graph_captures == 2 and graphed.graph_replays >= 5
+    assert graphed.graph_evictions == 0 and not graphed._graphs.broken
+    assert stepwise._graphs.captures == 0  # the stepwise loop never replays
+
+
+def test_a_failure_in_a_replayed_chunk_keeps_the_last_run(card,
+                                                          monkeypatch):
+    """A run that fails after its second chunk's graph was replayed leaves
+    the state the last completed run left, in memory no replay writes;
+    the next run gives what a search that never failed gives."""
+    failing, refs = graph_search(card, "delay")
+    clean, _ = graph_search(card, "delay")
+    for _ in range(2):
+        for s in (failing, clean):
+            s.run(refs, generations=32)
+    state, best, gens = failing._state, failing.best(), failing.generations_run
+    saved = [x.clone() for x in (*state.pop, state.best_fitness,
+                                 state.best_delays)]
+    real, calls = tgraphs.ChunkGraphs._replay, []
+
+    def replay_then_fail(*a, **k):
+        out = real(*a, **k)
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("the card went away")
+        return out
+
+    monkeypatch.setattr(tgraphs.ChunkGraphs, "_replay", replay_then_fail)
+    with pytest.raises(RuntimeError, match="the card went away"):
+        failing.run(refs, generations=32)
+    monkeypatch.setattr(tgraphs.ChunkGraphs, "_replay", real)
+    torch.cuda.synchronize()
+    assert failing._state is state and failing.generations_run == gens
+    assert all(torch.equal(x, y) for x, y in zip(
+        saved, (*state.pop, state.best_fitness, state.best_delays)))
+    after = failing.best()
+    assert after.fitness == best.fitness
+    assert np.array_equal(after.delays, best.delays)
+    a, b = failing.run(refs, generations=32), clean.run(refs, generations=32)
+    assert a.fitness == b.fitness and np.array_equal(a.delays, b.delays)
+    assert_same_search(failing, clean)
+    assert failing.graph_replays >= 2 + 2 + 2
+
+
+def test_a_capture_beside_seven_evolving_searches(card):
+    """8 searches on 8 threads: the 8th captures its graphs while the
+    other 7 replay theirs and read results back (``.cpu()``, event and
+    stream waits); each ends equal to its twin run alone."""
+    import threading
+
+    built = [graph_search(card, "delay", seed=k) for k in range(8)]
+    twins = [graph_search(card, "delay", seed=k) for k in range(8)]
+    for s, refs in built[:7]:
+        s.run(refs, generations=32)  # captured before the threads start
+    start, errors = threading.Barrier(8), []
+
+    def work(k):
+        s, refs = built[k]
+        try:
+            start.wait()
+            for _ in range(3):
+                s.run(refs, generations=32)
+                s._state.pop.delays[:2].cpu()
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads) and not errors
+    assert built[7][0].graph_captures >= 1
+    assert not any(s._graphs.broken for s, _ in built)
+    for k, ((s, _), (twin, refs)) in enumerate(zip(built, twins)):
+        for _ in range(3 + (k < 7)):
+            twin.run(refs, generations=32)
+        assert_same_search(s, twin)
+    # searches that are gone leave their graphs to the next visit
+    import gc
+
+    dev = twins[0][0]._graphs._dev
+    gone = {s._graphs._token for s, _ in built}
+    built.clear()
+    del s
+    gc.collect()
+    twins[0][0].run(twins[0][1], generations=32)
+    assert not gone & {token for token, _ in dev.graphs}
+
+
+def test_captures_and_releases_beside_replays_do_not_hang(card):
+    """8 searches on 8 threads under a graph budget that holds 2 of their
+    graphs: every run captures, releases other searches' graphs and
+    replays beside the others' captures, replays and reads, for many
+    rounds. Nothing hangs (a stack dump ends the process after 5 minutes),
+    nothing breaks, and each search ends equal to its twin run alone."""
+    import faulthandler
+    import threading
+
+    built = [graph_search(card, "delay", seed=k) for k in range(8)]
+    twins = [graph_search(card, "delay", seed=k) for k in range(8)]
+    for s, refs in built:
+        s.run(refs, generations=32)  # the device's first run of the key
+    dev = built[0][0]._graphs._dev
+    built[0][0].run(built[0][1], generations=32)
+    one = max(g.bytes for (t, _), g in dev.graphs.items()
+              if t == built[0][0]._graphs._token)
+    old, dev.budget = dev.budget, dev.pool_bytes + int(2.5 * one)
+    start, errors, rounds = threading.Barrier(8), [], 12
+
+    def work(k):
+        s, refs = built[k]
+        try:
+            start.wait()
+            for _ in range(rounds):
+                s.run(refs, generations=32)
+                s._state.pop.delays[:2].cpu()
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    faulthandler.dump_traceback_later(300, exit=True)
+    try:
+        threads = [threading.Thread(target=work, args=(k,))
+                   for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        dev.budget = old
+    assert not errors
+    assert not any(s._graphs.broken for s, _ in built)
+    assert sum(s.graph_evictions for s, _ in built) >= 16
+    assert sum(s.graph_captures for s, _ in built) >= 8 + 8
+    for k, ((s, _), (twin, refs)) in enumerate(zip(built, twins)):
+        for _ in range(1 + rounds + (k == 0)):
+            twin.run(refs, generations=32)
+        assert_same_search(s, twin)
+
+
+def test_a_new_novelty_scale_is_no_new_graph(card):
+    """With ``min_failure_signatures`` set, the novelty weight's scale
+    falls with every new failure signature (1, 1/2, 1/3, then the floor):
+    the graphs read it as an input, so one graph a chunk length serves
+    every run, bit for bit equal to the stepwise search."""
+    over = dict(min_failure_signatures=1, novelty_floor=0.25)
+    graphed, refs = graph_search(card, "delay", **over)
+    stepwise, _ = graph_search(card, "delay", fused=False, **over)
+    rng = np.random.RandomState(7)
+    scales = []
+    for r in range(5):
+        fail = te.encode_event_stream(
+            [f"h{rng.randint(40)}" for _ in range(200)],
+            arrivals=np.sort(rng.rand(200) * 0.2).tolist(), H=64)
+        for s in (graphed, stepwise):
+            if r:
+                s.add_failure_trace(fail)
+            s.run(refs, generations=40)
+        scales.append(graphed.novelty_scale())
+        assert_same_search(graphed, stepwise)
+    assert scales == [1.0, 0.5, 1 / 3, 0.25, 0.25]
+    assert graphed.graph_captures == 2  # chunks of 16 and of 8
+    assert (graphed.graph_captures + graphed.graph_replays
+            + graphed.graph_fallbacks) == 5 * 3
+    assert graphed.graph_replays >= 11 and not graphed._graphs.broken
+
+
+def test_chunks_replay_under_the_programs_profiler(card, tmp_path):
+    """8 searches evolve on 8 threads while the main thread starts and
+    stops ``torch.profiler`` (CPU and CUDA) 12 times through
+    :func:`graphs.start_profiler` and :func:`graphs.stop_profiler`: the
+    chunks replay under it, the last capture holds the graphs' B1 kernels,
+    and every stop completes (a graph launch in flight at a plain stop
+    hangs it; a stack dump ends the process after 5 minutes). Under a
+    profiler started plainly, chunks run eagerly."""
+    import faulthandler
+    import threading
+    import time
+
+    built = [graph_search(card, "delay", seed=k) for k in range(8)]
+    for s, refs in built:
+        for _ in range(2):
+            s.run(refs, generations=32)
+    before = [(s.graph_replays, s.graph_fallbacks) for s, _ in built]
+    stop, errors = threading.Event(), []
+
+    def work(k):
+        s, refs = built[k]
+        try:
+            while not stop.is_set():
+                s.run(refs, generations=32)
+                s._state.pop.delays[:2].cpu()
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    faulthandler.dump_traceback_later(300, exit=True)
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(8)]
+    try:
+        for t in threads:
+            t.start()
+        for _ in range(12):
+            prof = torch.profiler.profile(activities=acts)
+            tgraphs.start_profiler(prof, card)
+            time.sleep(0.15)
+            tgraphs.stop_profiler(prof, card)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+        faulthandler.cancel_dump_traceback_later()
+    assert not errors
+    assert all(s.graph_replays > r and s.graph_fallbacks == f
+               for (s, _), (r, f) in zip(built, before))
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        kernels = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    assert any("min_sq_kernel" in k for k in kernels)
+    s, refs = built[0]
+    replays, fallbacks = s.graph_replays, s.graph_fallbacks
+    with torch.profiler.profile(activities=acts):
+        s.run(refs, generations=32)
+    assert (s.graph_replays, s.graph_fallbacks) == (replays, fallbacks + 2)
+
+
+def test_a_failed_capture_runs_eagerly_from_then_on(card, monkeypatch,
+                                                    caplog):
+    """A host sync inside the island step breaks its capture: the search
+    warns once, runs every later chunk eagerly, still equals the
+    stepwise search, and the card's default generator draws again."""
+    import gc
+    import logging
+
+    from namazu_tpu_torch.parallel import islands as tisl
+
+    real = tisl.global_best
+
+    def reads_back(cands, mesh):
+        float(cands[0][0])  # a host read: a sync, refused in a capture
+        return real(cands, mesh)
+
+    monkeypatch.setattr(tisl, "global_best", reads_back)
+    graphed, refs = graph_search(card, "delay")
+    stepwise, _ = graph_search(card, "delay", fused=False)
+    with caplog.at_level(logging.WARNING, "namazu_tpu_torch.graphs"):
+        for _ in range(2):
+            graphed.run(refs, generations=32)
+            stepwise.run(refs, generations=32)
+            assert_same_search(graphed, stepwise)
+    assert graphed._graphs.broken and graphed.graph_captures == 0
+    assert graphed.graph_fallbacks == 4 and graphed.graph_replays == 0
+    assert sum("capture" in r.getMessage() for r in caplog.records) == 1
+    torch.rand(4, device=card).sum().item()
+    del graphed
+    gc.collect()
+    torch.cuda.synchronize()
 
 
 def tied_scoring_case(seed=0, P=64, H=32, K=32, T=3, L=600):

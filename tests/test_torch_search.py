@@ -28,7 +28,9 @@ from namazu_tpu_torch.models import ga as tga
 from namazu_tpu_torch.models import search as tsearch
 from namazu_tpu_torch.ops import schedule as tsched
 from namazu_tpu_torch.ops import trace_encoding as tte
+from namazu_tpu_torch.parallel import graphs as tgraphs
 from namazu_tpu_torch.parallel import islands as tisl
+from namazu_tpu_torch.parallel.mesh import make_island_mesh, make_mesh
 from test_torch_ga import SIGMA, jax_draws
 
 RTOL, ATOL = 1e-3, 1e-4
@@ -194,6 +196,253 @@ def test_a_failure_mid_chunk_keeps_the_last_round(monkeypatch, chunk):
     assert a.fitness == b.fitness and np.array_equal(a.delays, b.delays)
     assert torch.equal(failing._state.pop.delays, clean._state.pop.delays)
     assert failing.generations_run == 32
+
+
+MESHES = {
+    "one island": lambda: None,
+    "8 islands, one shard": lambda: make_island_mesh(8, device="cpu"),
+    "8 shards": lambda: make_mesh(8, device="cpu"),
+    "2 shards of 4": lambda: make_mesh(8, device="cpu").reshard(4),
+}
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_cpu_and_sharded_searches_never_capture(mesh):
+    """Chunks replay as CUDA graphs only on a card with the mesh in one
+    shard: a CPU search, and meshes of several shards, keep the eager
+    loop (no graphs, every count 0) and equal the stepwise run bit for
+    bit."""
+    fused, step = (tsearch.ScheduleSearch(
+        port_cfg(population=128, fused=f, fused_chunk=3),
+        mesh=MESHES[mesh](), device="cpu") for f in (True, False))
+    for s in (fused, step):
+        seed_archives(s, tte)
+    encs = refs(tte)
+    for gens in (5, 4):
+        a, b = (s.run(encs, generations=gens) for s in (fused, step))
+        assert a.fitness == b.fitness and np.array_equal(a.delays, b.delays)
+        assert fused.last_fit_curve == step.last_fit_curve
+        assert fused.last_capture_seconds == 0.0
+    assert fused._graphs is None
+    assert (fused.graph_captures, fused.graph_replays, fused.graph_fallbacks,
+            fused.graph_evictions) == (0, 0, 0, 0)
+    assert torch.equal(fused._full_population().delays,
+                       step._full_population().delays)
+
+
+@pytest.mark.parametrize("device,shards,distributed,want", [
+    ("cpu", 1, False, False),
+    ("cuda", 1, False, True),
+    ("cuda", 2, False, False),
+    ("cuda", 1, True, False),
+])
+def test_graphs_engage_on_one_shard_of_a_card(device, shards, distributed,
+                                              want):
+    from types import SimpleNamespace
+
+    mesh = SimpleNamespace(device=torch.device(device),
+                           shards=(object(),) * shards,
+                           distributed=distributed)
+    assert tgraphs.eligible(mesh) is want
+
+
+@pytest.mark.parametrize("islands", [1, 8])
+def test_chunk_seeds_are_the_eager_generators_seeds(islands):
+    """A replay seeds its generators for generations ``gen .. gen+g-1``
+    as :func:`generator_for` seeds them, and a chunk drawing from
+    generators so seeded equals the eager chunk bit for bit."""
+    mesh = (tisl.one_island("cpu") if islands == 1
+            else make_island_mesh(islands, device="cpu"))
+    seed, gen0, g = 2**33 + 7, 5, 4
+    seeds = tisl.chunk_seeds(seed, gen0, g, mesh)
+    assert [[tisl.generator_for(seed, gen0 + j, "cpu",
+                                mesh.coords(i)).initial_seed()
+             for i in range(islands)] for j in range(g)] == seeds
+    cfg = port_cfg(population=16 * islands)
+    s = tsearch.ScheduleSearch(cfg, mesh=mesh, device="cpu")
+    seed_archives(s, tte)
+    traces, pairs, archive, failures = s._device_inputs(refs(tte))
+    state = s._state._replace(gen=gen0)
+    args = (seed, traces, pairs, archive, failures, cfg.ga, cfg.weights)
+    want, hw = tisl.fused_step(state, g, *args, mesh=mesh, rings=s._rings)
+    gens = [[[torch.Generator().manual_seed(x) for x in row]]
+            for row in seeds]
+    got, hg = tisl.fused_step(state, g, *args, mesh=mesh, rings=s._rings,
+                              gens=gens)
+    assert torch.equal(got.pop.delays, want.pop.delays)
+    assert torch.equal(got.best_delays, want.best_delays)
+    assert torch.equal(hg, hw) and got.gen == want.gen == gen0 + g
+
+
+class _Owner:
+    evictions = 0
+
+
+@pytest.mark.parametrize("case", ["idle", "busy", "gone"])
+def test_graph_set_drops_least_recently_replayed(case):
+    """A device's graphs past their byte bound: the least recently
+    replayed one no search is running goes first and counts against its
+    search; a running search's graphs stay; a search that is gone takes
+    its graphs along, uncounted."""
+    dev = tgraphs._Device(budget=250)
+    owner, other = _Owner(), _Owner()
+    for token, key, who in ((1, "a", owner), (1, "b", owner),
+                            (2, "c", other)):
+        g = tgraphs._Graph(who)
+        g.bytes = 100
+        dev.add(token, key, g)
+    assert dev.bytes == 300  # every graph's search is running
+    dev.take(1, "a")  # replayed: "b" is now the least recent
+    if case == "idle":
+        dev.settle(1)
+        assert list(dev.graphs) == [(2, "c"), (1, "a")]
+        assert (owner.evictions, other.evictions, dev.bytes) == (1, 0, 200)
+    elif case == "busy":
+        dev.settle(2)
+        assert list(dev.graphs) == [(1, "b"), (1, "a")]
+        assert (owner.evictions, other.evictions) == (0, 1)
+    else:
+        dev.gone.append(1)  # what the search's finalizer does
+        dev.settle(2)
+        assert list(dev.graphs) == [(2, "c")] and dev.bytes == 100
+        assert owner.evictions == other.evictions == 0
+
+
+def test_graph_set_keeps_its_count_under_threads():
+    """16 searches' threads add, replay and settle graphs on one device's
+    set at once: its byte count stays the sum of the graphs it holds and
+    within its bound once every run is over, and each graph added is
+    either held or counted against its search."""
+    import sys
+    import threading
+
+    dev = tgraphs._Device(budget=1000)
+    owners = [_Owner() for _ in range(16)]
+    adds, errors = [0] * 16, []
+
+    def work(token):
+        try:
+            for i in range(200):
+                key = i % 7
+                if dev.take(token, key) is None:
+                    g = tgraphs._Graph(owners[token])
+                    g.bytes = 50 + token
+                    dev.add(token, key, g)
+                    adds[token] += 1
+                dev.settle(token)
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and not errors
+    assert dev.bytes == sum(g.bytes for g in dev.graphs.values())
+    assert dev.bytes <= dev.budget
+    assert not any(g.busy for g in dev.graphs.values())
+    assert sum(adds) == sum(o.evictions for o in owners) + len(dev.graphs)
+    assert sum(adds) > 16 * 7  # the bound evicted graphs under way
+
+
+class _NotedGraph:
+    """Stands for a captured CUDA graph: notes whether its device's
+    lifecycle lock is held at its reset and at its destruction."""
+
+    def __init__(self, dev, seen):
+        self.dev, self.seen = dev, seen
+
+    def reset(self):
+        self.seen.append(("reset", self.dev.lifecycle.locked()))
+
+    def __del__(self):
+        self.seen.append(("del", self.dev.lifecycle.locked()))
+
+
+@pytest.mark.parametrize("path", ["add", "settle", "gone"])
+def test_graphs_are_released_under_the_lifecycle_lock(path):
+    """Every way a graph leaves a device's set (evicted as another is
+    added, evicted as its search's run ends, dropped with a search that is
+    gone) resets and destroys it with the device's lifecycle lock held,
+    the lock every capture holds: PyTorch shares state among a device's
+    graphs that it does not guard across threads."""
+    import gc
+
+    dev, seen = tgraphs._Device(budget=150), []
+    owner = _Owner()
+
+    def graph(bytes_):
+        g = tgraphs._Graph(owner)
+        g.graph, g.bytes = _NotedGraph(dev, seen), bytes_
+        return g
+
+    dev.add(1, "a", graph(100))
+    if path == "add":
+        dev.settle(1)
+        dev.add(2, "b", graph(100))  # over the bound: "a" goes
+    elif path == "settle":
+        dev.add(2, "b", graph(100))
+        dev.settle(2)  # over the bound once "b" may go
+    else:
+        dev.add(2, "b", graph(40))  # within the bound
+        dev.gone.append(1)
+        dev.settle(2)
+    gc.collect()
+    assert [k for k, _ in seen] == ["reset", "del"]
+    assert all(held for _, held in seen)
+    assert not dev.lifecycle.locked() and len(dev.graphs) == 1
+
+
+def test_launch_counts_are_kept_by_thread():
+    """``thread_launches`` is the calling thread's own share of the B1
+    and B2 counts, which a graph's capture reads across itself while
+    other threads launch."""
+    import threading
+
+    from namazu_tpu_torch.ops import pair_distance as tpd
+
+    before = (tpd.LAUNCHES, tpd.SINGLE_LAUNCHES)
+    mine = tpd.thread_launches()
+    seen = {}
+
+    def launch(k):
+        start = tpd.thread_launches()
+        for _ in range(k):
+            tpd._count(0)
+        tpd._count(1)
+        end = tpd.thread_launches()
+        seen[k] = (end[0] - start[0], end[1] - start[1])
+
+    threads = [threading.Thread(target=launch, args=(k,)) for k in (3, 5)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert seen == {3: (3, 1), 5: (5, 1)}
+    assert tpd.thread_launches() == mine
+    assert (tpd.LAUNCHES - before[0], tpd.SINGLE_LAUNCHES - before[1]) \
+        == (8, 2)
+
+
+def test_the_programs_profiler_on_the_cpu_is_a_plain_one():
+    """:func:`graphs.start_profiler` and :func:`graphs.stop_profiler` on
+    the CPU start and stop the profiler and nothing else."""
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    tgraphs.start_profiler(prof, "cpu")
+    assert tgraphs._profiling()
+    with torch.profiler.record_function("nmz:probe"):
+        torch.ones(2).sum()
+    tgraphs.stop_profiler(prof, "cpu")
+    assert not tgraphs._profiling()
+    assert any(e.name == "nmz:probe" for e in prof.events())
 
 
 def test_search_end_to_end_rescored_by_reference():

@@ -155,6 +155,7 @@ def test_a_search_names_its_ingest_and_save_and_splits_its_evolve(
     assert tm["ingest_read"] + tm["ingest_encode"] <= tm["ingest_read_encode"]
     assert tm["evolve_wait"] + tm["evolve_cpu"] <= tm["run"]
     assert tm["evolve_cpu"] > 0.0
+    assert tm["evolve_capture"] == 0.0  # no CUDA graphs on the CPU
     for phase, key in (("ingest", "ingest"), ("save", "save"),
                        ("ingest_read_encode", "ingest_read_encode"),
                        ("ingest_archive", "ingest_archive")):
